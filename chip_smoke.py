@@ -33,8 +33,18 @@ counting each kernel's launches against what the operands call for:
   device="cuda")`: bytes held against the plain-path twin in this process
   (`api.score_image(..., plain=True)` + `api.emit_image`), decoded pixels
   against their digests (the 4K stream against the port's CPU decode).
+The encode kernels (`score48`, `score48_mode` and `values48`) are held
+against their plain versions on all six 3D passes of img512 and of the 4K
+image, on random operands (P 16-128, E up to 128, wild dead pixels in mixed
+tiles), on patterns with ties and on a bank no tile takes; the encode run
+shows `score48_mode` and `values48` launched once per 3D pass and the sums
+form `score48` not at all.
 Then the decodes, the encode and each kernel against its plain version are
-timed with CUDA events.
+timed with CUDA events (`score48_mode` and `values48` on all six 4K
+passes, the sums form on the 4x4 pass, beside the bounds of each pass's
+work), and torch.profiler sums one warm 4K scoring call by kernel name.
+A kernel's launches are its wrapper's calls: a `values48` call runs three
+CUDA kernels (table packing, decision, idx).
 
 The last lines are the card as nvidia-smi names it, one JSON line with the
 kernels (time, plain time, the card's least time for the same work and what
@@ -66,6 +76,7 @@ RGBA = ["alpha64_1bit", "alpha64_6bit", "alpha64_8bit", "alpha64_const255",
         "alpha64_sparse", "sprite256", "sprite256_6bit"]
 DECODE_KERNELS = ("grad_plane", "grad_plane_final", "t3_merged",
                   "t3_merged_d1", "t2_merged", "lut_pass")
+ENCODE_KERNELS = ("score48", "score48_mode", "values48")
 KERNELS = {
     "grad_plane": ("yaik_tpu_torch/ops/csrc/grad_plane.cu",
                    "yaik_tpu/ops/pallas_kernels.py:311"),
@@ -85,6 +96,10 @@ KERNELS = {
                  "yaik_tpu/ops/pallas_kernels.py:100"),
     "score48": ("yaik_tpu_torch/ops/csrc/score48.cu",
                 "yaik_tpu/ops/pallas_kernels.py:409"),
+    # score48 with the pattern-argmin epilogue: the Pallas score48 together
+    # with the argmin after it (yaik_tpu/encoder/jax_scoring.py:354)
+    "score48_mode": ("yaik_tpu_torch/ops/csrc/score48.cu",
+                     "yaik_tpu/ops/pallas_kernels.py:409"),
     "values48": ("yaik_tpu_torch/ops/csrc/values48.cu",
                  "yaik_tpu/ops/pallas_kernels.py:906"),
 }
@@ -110,14 +125,15 @@ def cuda_ms(fn, iters: int, queued: bool = True) -> float:
     waits for it."""
     fn()
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    for _ in range(2):
-        fn()
-    host_s = (time.perf_counter() - t) / 2
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if queued:    # ~2e9 cycles/s at the H100's 1980 MHz boost clock
+    if queued:
+        t = time.perf_counter()
+        for _ in range(2):
+            fn()
+        host_s = (time.perf_counter() - t) / 2
+        torch.cuda.synchronize()
+        # ~2e9 cycles/s at the H100's 1980 MHz boost clock
         torch.cuda._sleep(int(2 * iters * host_s * 2e9) + 1000)
     start.record()
     for _ in range(iters):
@@ -153,12 +169,19 @@ def v48_operands(rng, T: int, P: int, E: int) -> list:
             for a in ops]
 
 
-def bound(reads: list, writes: list, ops: float, kind: str) -> tuple:
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(reads: list, writes: list, ops: float, kind: str,
+          moved: float | None = None) -> tuple:
     """The card's least time (ms) for a call that reads each tensor of
-    `reads` once, writes each of `writes` once and does `ops` operations
-    of `kind`; and which of the two bounds it."""
-    nbytes = sum(t.numel() * t.element_size() for t in reads + writes)
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK_OPS[kind]
+    `reads` once, writes each of `writes` once (or moves `moved` bytes,
+    where the function needs only part of its tensors) and does `ops`
+    operations of `kind`; and which of the two bounds it."""
+    if moved is None:
+        moved = nbytes(*reads, *writes)
+    t_bytes, t_ops = moved / HBM_BPS, ops / PEAK_OPS[kind]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -394,41 +417,58 @@ def main() -> int:
 
     def check_score_values(label, o):
         alive = ~o.mask
-        sums = kernels.score48(o.c, alive, tabs.qpts)
-        check_kernel("score48", label, [sums],
+        check_kernel("score48", label, [kernels.score48(o.c, alive, tabs.qpts)],
                      [kernels.score48_plain(o.c, alive, tabs.qpts)])
-        args = (o.tiles, alive, o.a_c, o.b_c, scoring.pattern_argmin(sums),
-                o.mn, o.mx - o.mn, tabs.pts, tabs.factors)
+        mode = kernels.score48_mode(o.c, alive, tabs.qpts)
+        check_kernel("score48_mode", label, [mode],
+                     [kernels.score48_mode_plain(o.c, alive, tabs.qpts)])
+        args = (o.tiles, alive, o.a_c, o.b_c, mode, o.mn, o.mx - o.mn,
+                tabs.pts, tabs.factors)
         check_kernel("values48", label, kernels.values48(*args),
                      kernels.values48_plain(*args))
         return o.c, args
 
-    # real operands: every pass of img512, the 16x8 and 4x4 passes of 4K;
-    # claims evolve through the gradient stage and the kernel path
+    # real operands: every pass of img512 and of the 4K image; claims evolve
+    # through the gradient stage and the kernel path
     enc_args = {}
-    for n, shifts in (("img512", swizzle.TILE3D_PASS_ORDER),
-                      ("bench_4k", [(4, 3), (2, 2)])):
+    for n in ("img512", "bench_4k"):
         planes = planes_of(images[n], dev)
         claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
         scoring.gradient_all(planes, claims, 3)
         for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
-            if (sx, sy) in shifts:
-                enc_args[n, sx, sy] = check_score_values(
-                    f"{n} pass {1 << sx}x{1 << sy}",
-                    scoring.tile3d_operands(planes, claims, sx, sy))
+            enc_args[n, sx, sy] = check_score_values(
+                f"{n} pass {1 << sx}x{1 << sy}",
+                scoring.tile3d_operands(planes, claims, sx, sy))
             scoring.tile3d_pass(planes, claims, tabs, sx, sy)
+    # random operands: wild dead pixels in mixed tiles, one all-dead tile,
+    # banks up to the Pallas kernel's 128 LUTs
     for P in (16, 32, 64, 128):
-        for E in (12, 22):
-            a = [x.to(dev) for x in v48_operands(rng, 4001, P, E)]
+        for E in (12, 22, 128):
+            T = 4001 if E < 128 else 1001
+            a = [x.to(dev) for x in v48_operands(rng, T, P, E)]
             check_kernel("values48", f"random P={P} E={E}, wild dead pixels",
                          kernels.values48(*a), kernels.values48_plain(*a))
-            c = torch.from_numpy(rng.integers(0, 64, (4001, P, 3)).astype(
+            c = torch.from_numpy(rng.integers(0, 64, (T, P, 3)).astype(
                 np.int32)).to(dev)
             q = torch.from_numpy(rng.integers(0, 64, (E, 48, 8, 3)).astype(
                 np.int32)).to(dev)
-            check_kernel("score48", f"random P={P} E={E}",
-                         [kernels.score48(c, a[1], q)],
-                         [kernels.score48_plain(c, a[1], q)])
+            for name in ("score48", "score48_mode"):
+                check_kernel(name, f"random P={P} E={E}",
+                             [getattr(kernels, name)(c, a[1], q)],
+                             [getattr(kernels, f"{name}_plain")(c, a[1], q)])
+    # ties: each LUT's 48 patterns are 6 runs of 8 identical ones, so equal
+    # sums must give the first pattern of a run
+    q = torch.from_numpy(np.repeat(rng.integers(0, 64, (12, 6, 8, 3)), 8,
+                                   axis=1).astype(np.int32)).to(dev)
+    for P in (16, 128):
+        c = torch.from_numpy(rng.integers(0, 64, (2001, P, 3)).astype(
+            np.int32)).to(dev)
+        alive = torch.from_numpy(rng.random((2001, P)) < 0.5).to(dev)
+        mode = kernels.score48_mode(c, alive, q)
+        check_kernel("score48_mode", f"ties P={P}", [mode],
+                     [kernels.score48_mode_plain(c, alive, q)])
+        if bool((mode % 8).any()):
+            raise AssertionError("score48_mode broke a tie to a later pattern")
     a = v48_operands(rng, 64, 16, 3)
     a[1] = torch.ones((64, 16), dtype=torch.bool)
     a[8] = torch.full((4, 3, 64, 3), 4000, dtype=torch.int32)
@@ -555,17 +595,22 @@ def main() -> int:
         hold(f"{n} per pass", out, n)
 
     # -- phase 3b: the encode path, through the user's entry point ---------
-    kernels.score48.launches = kernels.values48.launches = 0
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
     encoded = {n: yaik_tpu_torch.encode_image(img, bank3d, device="cuda")
                for n, img in images.items()}
-    launches.update(score48=kernels.score48.launches,
-                    values48=kernels.values48.launches)
-    print(f"launches in the encode run: score48 {launches['score48']}, "
-          f"values48 {launches['values48']}")
-    for name in ("score48", "values48"):
-        if launches[name] != 6 * len(images):     # one per 3D pass
-            raise AssertionError(f"{name} launched {launches[name]} times "
-                                 f"in {len(images)} encodes")
+    launches.update({name: getattr(kernels, name).launches
+                     for name in ENCODE_KERNELS})
+    print("launches in the encode run (wrapper calls; a values48 call runs "
+          "three CUDA kernels): " + ", ".join(
+              f"{name} {launches[name]}" for name in ENCODE_KERNELS))
+    # one score48_mode and one values48 per 3D pass; the sums form is off
+    # the encode path
+    want = {"score48": 0, "score48_mode": 6 * len(images),
+            "values48": 6 * len(images)}
+    if {name: launches[name] for name in ENCODE_KERNELS} != want:
+        raise AssertionError(f"encode launches {launches}, {len(images)} "
+                             f"encodes call for {want}")
     for n in ENCODE:
         t = time.perf_counter()
         twin = api.emit_image(images[n], *api.score_image(
@@ -746,37 +791,89 @@ def main() -> int:
               f"back-to-back with host dispatch {b2b:.3f} ms "
               f"({mpix / b2b * 1e3:.1f} MPix/s), host emission + zstd "
               f"{emit_ms:.2f} ms, encode_image wall {e2e_ms:.2f} ms [{card}]")
+        if n == "bench_4k":           # one warm scoring call, by kernel
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                score_on_device()
+                torch.cuda.synchronize()
+            rows = sorted(((ev.device_time_total / 1e3, ev.count, ev.key)
+                           for ev in prof.key_averages()
+                           if ev.device_time_total > 0), reverse=True)
+            print(f"profile encode {n} scoring: device "
+                  f"{sum(r[0] for r in rows):.3f} ms in "
+                  f"{sum(r[1] for r in rows)} kernel launches, by name "
+                  f"[{card}]")
+            for dms, cnt, key in rows[:12]:
+                print(f"  profile {dms:.3f} ms x{cnt} {key[:100]}")
+
+    # the encode kernels on every 4K pass (the sums form, off the encode
+    # path, on the 4x4 pass only), with the bounds of this pass's work:
+    # float32 operations, score48 7 per point distance of an alive pixel
+    # (3 FMAs and a min), E*48*8 of them; values48 9 per distance, to the
+    # 120 window points of every LUT for an alive pixel and to the chosen
+    # window's points for every pixel. The bytes are those the function
+    # needs: c and tiles of alive pixels only (a dead pixel's reach no
+    # output), and for values48 the mode48 row, mn and d of a tile with an
+    # alive pixel but one mode48 word of an all-dead tile (its type word's);
+    # a_c, b_c, alive and idx of every pixel; pts in full and the factors
+    # of the 120 window points.
+    E = tabs.qpts.shape[0]
     for (n, sx, sy), (c, args) in enc_args.items():
-        if (sx, sy) not in ((4, 3), (2, 2)):
+        if n != "bench_4k":
             continue
         alive = args[1]
-        for name, fn, plain in (
-                ("score48", lambda: kernels.score48(c, alive, tabs.qpts),
-                 lambda: kernels.score48_plain(c, alive, tabs.qpts)),
-                ("values48", lambda: kernels.values48(*args),
-                 lambda: kernels.values48_plain(*args))):
+        T, P = alive.shape
+        n_alive = float(alive.sum())
+        n_live = float(alive.any(1).sum())
+        label = f"{n} pass {1 << sx}x{1 << sy}"
+        print(f"encode {label}: {n_alive / alive.numel():.4f} of the pixels "
+              f"alive, {n_live / T:.4f} of the tiles with an alive pixel")
+        mode = kernels.score48_mode(c, alive, tabs.qpts)
+        v_out = kernels.values48(*args)
+        window_pts = (64 >> (3 - (v_out[1] >> 14))).sum() * P
+        score_ops = n_alive * E * 48 * 8 * 7
+        v_ops = (n_alive * E * 120 + float(window_pts)) * 9
+        _, _, a_c, b_c, _, _, _, pts, _ = args
+        v_bytes = (nbytes(a_c, b_c, alive, pts, *v_out)
+                   + n_alive * 12 + n_live * (E * 4 + 24)
+                   + (T - n_live) * 4 + E * 120 * 12)
+        b = {"score48_mode": bound([], [], score_ops, "f32",
+                                   n_alive * 12 + nbytes(alive, tabs.qpts,
+                                                         mode)),
+             "values48": bound([], [], v_ops, "f32", v_bytes)}
+        # the earlier counts: every tensor read in full, and before the
+        # redesign every pixel x E x 120 points as well
+        full = bound(list(args), list(v_out), v_ops, "f32")
+        old = bound(list(args), list(v_out), T * P * E * 120 * 9, "f32")
+        timed = [("score48_mode",
+                  lambda: kernels.score48_mode(c, alive, tabs.qpts),
+                  lambda: kernels.score48_mode_plain(c, alive, tabs.qpts)),
+                 ("values48", lambda: kernels.values48(*args),
+                  lambda: kernels.values48_plain(*args))]
+        if (sx, sy) == (2, 2):
+            sums = kernels.score48(c, alive, tabs.qpts)
+            # the sums form: c, alive and qpts read, 1.19 GB of sums written
+            b["score48"] = bound([c, alive, tabs.qpts], [sums], score_ops,
+                                 "f32")
+            del sums
+            timed.insert(0, (
+                "score48", lambda: kernels.score48(c, alive, tabs.qpts),
+                lambda: kernels.score48_plain(c, alive, tabs.qpts)))
+        for name, fn, plain in timed:
             p1 = cuda_ms(plain, 1, queued=False)
             k1 = cuda_ms(fn, 20)
             k2 = cuda_ms(fn, 20)
             p2 = cuda_ms(plain, 1, queued=False)
-            print(f"time {name} {n} pass {1 << sx}x{1 << sy}: kernel "
-                  f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms "
-                  f"(plain, kernel, kernel, plain) [{card}]")
-            if (n, sx, sy) == ("bench_4k", 2, 2):
+            extra = (f"; every tensor in full {full[0]:.4f} ms ({full[1]}), "
+                     f"every pixel x E x 120 points {old[0]:.4f} ms "
+                     f"({old[1]})" if name == "values48" else "")
+            print(f"time {name} {label}: kernel {k1:.4f} / {k2:.4f} ms, "
+                  f"plain {p1:.4f} / {p2:.4f} ms (plain, kernel, kernel, "
+                  f"plain); bound {b[name][0]:.4f} ms ({b[name][1]}), "
+                  f"{b[name][0] / ((k1 + k2) / 2):.0%} of it{extra} [{card}]")
+            if (sx, sy) == (2, 2):
                 kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        if (n, sx, sy) == ("bench_4k", 2, 2):
-            # float32 operations: score48 7 per point distance of an alive
-            # pixel (3 FMAs and a min), E*48*8 of them; values48 9 per
-            # distance to each of the 120 window points, every (pixel, LUT)
-            T, P = alive.shape
-            E = tabs.qpts.shape[0]
-            sums = kernels.score48(c, alive, tabs.qpts)
-            bounds["score48"] = bound(
-                [c, alive, tabs.qpts], [sums],
-                float(alive.sum()) * E * 48 * 8 * 7, "f32")
-            bounds["values48"] = bound(
-                list(args), list(kernels.values48(*args)),
-                T * P * E * 120 * 9, "f32")
+                bounds[name] = b[name]
 
     print(card)
     print(json.dumps({"kernels": [

@@ -193,13 +193,21 @@ def _pass_operands(planes, bank3d, cuda, shifts):
     return out, tabs
 
 
+def _check_scores(c, alive, qpts):
+    """Both score48 forms equal their plain versions; returns mode48."""
+    sums = kernels.score48(c, alive, qpts)
+    mode = kernels.score48_mode(c, alive, qpts)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, kernels.score48_plain(c, alive, qpts))
+    assert torch.equal(mode, kernels.score48_mode_plain(c, alive, qpts))
+    return mode
+
+
 def _check_score_values(ops, tabs):
     alive = ~ops.mask
-    sums = kernels.score48(ops.c, alive, tabs.qpts)
-    torch.cuda.synchronize()
-    assert torch.equal(sums, kernels.score48_plain(ops.c, alive, tabs.qpts))
-    args = (ops.tiles, alive, ops.a_c, ops.b_c, scoring.pattern_argmin(sums),
-            ops.mn, ops.mx - ops.mn, tabs.pts, tabs.factors)
+    mode = _check_scores(ops.c, alive, tabs.qpts)
+    args = (ops.tiles, alive, ops.a_c, ops.b_c, mode, ops.mn, ops.mx - ops.mn,
+            tabs.pts, tabs.factors)
     got = kernels.values48(*args)
     torch.cuda.synchronize()
     for g, w in zip(got, kernels.values48_plain(*args)):
@@ -207,7 +215,10 @@ def _check_score_values(ops, tabs):
     assert got[0].any()
 
 
-@pytest.mark.parametrize("shift", [(4, 3), (2, 2)])
+SHIFTS = [(4, 3), (3, 4), (3, 3), (3, 2), (2, 3), (2, 2)]
+
+
+@pytest.mark.parametrize("shift", SHIFTS)
 def test_score_values_kernels_vs_plain_512(cuda, bank3d, shift):
     img = np.asarray(Image.open(FIX / "img512.png"))
     ops, tabs = _pass_operands(img, bank3d, cuda, [shift])
@@ -215,14 +226,17 @@ def test_score_values_kernels_vs_plain_512(cuda, bank3d, shift):
 
 
 def test_score_values_kernels_vs_plain_4k(cuda, bank3d, image_4k):
-    ops, tabs = _pass_operands(image_4k, bank3d, cuda, [(4, 3), (2, 2)])
+    ops, tabs = _pass_operands(image_4k, bank3d, cuda, SHIFTS)
     for o in ops.values():
         _check_score_values(o, tabs)
 
 
 @pytest.mark.parametrize("P,E", [(16, 12), (32, 12), (64, 12), (128, 12),
-                                 (16, 22), (128, 22)])
+                                 (16, 22), (128, 22), (16, 128), (64, 128),
+                                 (128, 128)])
 def test_score_values_kernels_vs_plain_random(cuda, P, E):
+    """Wild dead pixels in mixed tiles, one all-dead tile; E up to the
+    Pallas kernel's 128 LUTs, more than one staged chunk of tables."""
     rng = np.random.default_rng(P + E)
     args = [a.to(cuda) for a in _v48_operands(rng, 1001, P, E)]
     got = kernels.values48(*args)
@@ -231,10 +245,21 @@ def test_score_values_kernels_vs_plain_random(cuda, P, E):
         assert torch.equal(g, w)
     c = torch.from_numpy(rng.integers(0, 64, (1001, P, 3)).astype(np.int32))
     q = torch.from_numpy(rng.integers(0, 64, (E, 48, 8, 3)).astype(np.int32))
-    c, q = c.to(cuda), q.to(cuda)
-    got = kernels.score48(c, args[1], q)
-    torch.cuda.synchronize()
-    assert torch.equal(got, kernels.score48_plain(c, args[1], q))
+    mode = _check_scores(c.to(cuda), args[1], q.to(cuda))
+    assert not mode[1001 // 2].any()                # the all-dead tile
+
+
+@pytest.mark.parametrize("P", [16, 128])
+def test_score48_mode_first_tie_on_card(cuda, P):
+    """Each LUT's 48 patterns are 6 runs of 8 identical ones: equal sums
+    must give the first pattern of a run."""
+    rng = np.random.default_rng(P)
+    q = np.repeat(rng.integers(0, 64, (12, 6, 8, 3)), 8, axis=1)
+    c = rng.integers(0, 64, (2001, P, 3))
+    alive = torch.from_numpy(rng.random((2001, P)) < 0.5).to(cuda)
+    mode = _check_scores(torch.from_numpy(c.astype(np.int32)).to(cuda), alive,
+                         torch.from_numpy(q.astype(np.int32)).to(cuda))
+    assert not (mode % 8).any()
 
 
 def test_values48_kernel_all_skip(cuda):
@@ -254,16 +279,29 @@ def test_pattern_argmin_first_tie_on_card(cuda):
     ties = rng.choice(48, (500, 12, 3))
     for k in range(3):
         np.put_along_axis(sums, ties[..., k:k + 1], 7, axis=-1)
-    got = scoring.pattern_argmin(torch.from_numpy(sums).to(cuda))
+    got = kernels.pattern_argmin(torch.from_numpy(sums).to(cuda))
     assert np.array_equal(got.cpu().numpy(), ties.min(-1))
 
 
 @pytest.mark.parametrize("name", ["img64", "img128"])
 def test_encode_cuda_matches_host_engine(cuda, name, bank3d):
     img = np.asarray(Image.open(FIX / f"{name}.png"))
-    s0, v0 = kernels.score48.launches, kernels.values48.launches
+    names = ("score48", "score48_mode", "values48")
+    before = {n: getattr(kernels, n).launches for n in names}
     got = yaik_tpu_torch.encode_image(img, bank3d, device=cuda)
-    assert kernels.score48.launches == s0 + 6
+    after = {n: getattr(kernels, n).launches - k for n, k in before.items()}
+    assert after == {"score48": 0, "score48_mode": 6, "values48": 6}
+    assert got == host_encode_image(img, bank3d, engine="host")
+
+
+def test_entry_points_default_to_the_card(cuda, bank, bank3d):
+    """No device argument: decode and encode launch the card's kernels."""
+    g0, v0 = kernels.grad_plane.launches, kernels.values48.launches
+    got = yaik_tpu_torch.decode_image((FIX / "img64.yaik").read_bytes(), bank)
+    assert np.array_equal(got, np.load(FIX / "img64.dec.npz")["rgb"])
+    assert kernels.grad_plane.launches == g0 + 1
+    img = np.asarray(Image.open(FIX / "img64.png"))
+    got = yaik_tpu_torch.encode_image(img, bank3d)
     assert kernels.values48.launches == v0 + 6
     assert got == host_encode_image(img, bank3d, engine="host")
 

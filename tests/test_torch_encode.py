@@ -9,6 +9,7 @@ normalization divides by a power of two.
 On the CPU the scoring kernels run their plain versions;
 tests/test_torch_cuda.py encodes on the card.
 """
+import inspect
 import pathlib
 
 import numpy as np
@@ -26,6 +27,7 @@ from yaik_tpu.encoder.context import EncoderConfig
 from yaik_tpu.encoder.context import encode_image as jax_encode_image
 from yaik_tpu.format import swizzle
 from yaik_tpu_torch.encoder import api, emit, pipeline, scoring, tables
+from yaik_tpu_torch.ops import kernels
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
 CPU = torch.device("cpu")
@@ -120,6 +122,55 @@ def test_emit_tile3d_streams_matches_jax(bank):
         assert got[k] == want[k], k
     for k in swizzle.TILE3D_PASS_ORDER:
         assert np.array_equal(got["maps"][k], want["maps"][k])
+
+
+@pytest.mark.parametrize("plain", [False, True])
+def test_tile3d_pass_scores_through_score48_mode(plain, bank, monkeypatch):
+    """Each dense 3D pass takes its mode48 from score48_mode (its plain
+    version under plain=True), one call a pass; the sums form's wrapper is
+    not called. Its result equals the JAX pass's."""
+    calls = []
+    for name in ("score48_mode", "score48_mode_plain"):
+        fn = getattr(kernels, name)
+        monkeypatch.setattr(kernels, name,
+                            lambda *a, fn=fn, name=name: calls.append(name)
+                            or fn(*a))
+
+    def refuse(*a):
+        raise AssertionError("the sums form was called")
+    monkeypatch.setattr(kernels, "score48", refuse)
+    planes = _planes(_image("img64"))
+    claims = torch.zeros(planes.shape, dtype=torch.bool)
+    scoring.gradient_all(torch.from_numpy(planes), claims, 3)
+    jp = jnp.asarray(planes)
+    _, jclaims = js.gradient_all_device(jp, jnp.zeros(planes.shape, bool), 3)
+    want = js.tile3d_pass_resident(jp, jclaims,
+                                   *devp.bank_device_tables(bank), 3, 3)
+    got = scoring.tile3d_pass(torch.from_numpy(planes), claims,
+                              tables.device_tables(bank, CPU), 3, 3,
+                              plain=plain)
+    # on the CPU the wrapper routes to the plain version
+    assert calls == (["score48_mode_plain"] if plain else
+                     ["score48_mode", "score48_mode_plain"])
+    for g, w in zip(got[:3], want[:3]):
+        assert np.array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("entry", ["decode_image", "encode_image",
+                                   "score_image"])
+def test_entry_points_default_to_the_card(entry, bank, monkeypatch):
+    """Called without a device, each entry point runs on the card; with no
+    card it raises and never falls back to the CPU."""
+    fn = getattr(api if entry == "score_image" else yaik_tpu_torch, entry)
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    if entry == "decode_image":
+        args = ((FIX / "img64.yaik").read_bytes(),
+                (FIX / "LutFile.lut").read_bytes())
+    else:
+        args = (_image("img64"), bank)
+    with pytest.raises(RuntimeError, match="is_available"):
+        fn(*args)
 
 
 @pytest.mark.parametrize("name", ["img64", "img128", "quilt128"])

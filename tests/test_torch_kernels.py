@@ -22,7 +22,6 @@ from yaik_tpu.encoder.corr3d import SWAP3D
 from yaik_tpu.ops import pallas_kernels as pk
 from yaik_tpu_torch import convert
 from yaik_tpu_torch.decoder import pack
-from yaik_tpu_torch.encoder import scoring
 from yaik_tpu_torch.ops import kernels
 
 
@@ -252,7 +251,7 @@ def test_pattern_argmin_takes_the_first_tie():
     for k in range(3):                      # three patterns share the min
         np.put_along_axis(sums, ties[..., k:k + 1], 7, axis=-1)
     sums[0, 0] = 5                          # all 48 equal
-    got = scoring.pattern_argmin(torch.from_numpy(sums)).numpy()
+    got = kernels.pattern_argmin(torch.from_numpy(sums)).numpy()
     assert got.dtype == np.int32
     want = ties.min(-1)
     want[0, 0] = 0
@@ -372,6 +371,89 @@ def test_score_values_wrappers_route_cpu_and_check_operands():
         kernels.values48(*args[:4], args[4].to(torch.int64), *args[5:])
     with pytest.raises(ValueError):
         kernels.values48(*args[:8], args[8][:, :1].contiguous())
+
+
+def _tie_qpts(rng, E):
+    """Each LUT's 48 patterns as 6 runs of 8 identical ones: equal sums."""
+    return np.repeat(rng.integers(0, 64, (E, 6, 8, 3)), 8, axis=1).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("P", [16, 128])
+@pytest.mark.parametrize("ties", [False, True])
+def test_score48_mode_plain_vs_pallas_and_xla(P, ties):
+    """score48_mode (the plain version on the CPU) == jnp.argmin over the
+    Pallas score48 (interpret mode) and over tile3d_score_device, with an
+    all-dead tile (mode 0) and, with `ties`, runs of identical patterns
+    whose equal sums must give the run's first pattern."""
+    rng = np.random.default_rng(P + ties)
+    c, alive, qpts = _score_operands(rng, 37, P, 12)
+    if ties:
+        qpts = _tie_qpts(rng, 12)
+    before = kernels.score48_mode.launches
+    got = kernels.score48_mode(*(torch.from_numpy(a)
+                                 for a in (c, alive, qpts))).numpy()
+    assert kernels.score48_mode.launches == before
+    assert got.dtype == np.int32 and got.shape == (37, 12)
+    j = [jnp.asarray(a) for a in (c, alive, qpts)]
+    assert np.array_equal(
+        got, np.asarray(jnp.argmin(pk.score48(*j, interpret=True), -1)))
+    assert np.array_equal(
+        got, np.asarray(jnp.argmin(js.tile3d_score_device(*j), -1)))
+    assert not got[37 // 2].any()                   # the all-dead tile
+    if ties:
+        assert not (got % 8).any()
+
+
+def test_score48_mode_wrapper_routes_cpu_and_checks_operands():
+    c, alive, qpts = (torch.from_numpy(a) for a in _score_operands(
+        np.random.default_rng(8), 8, 16, 2))
+    before = kernels.score48_mode.launches
+    assert torch.equal(kernels.score48_mode(c, alive, qpts),
+                       kernels.pattern_argmin(
+                           kernels.score48_plain(c, alive, qpts)))
+    assert kernels.score48_mode.launches == before
+    with pytest.raises(TypeError):
+        kernels.score48_mode(c, alive.to(torch.uint8), qpts)
+    with pytest.raises(ValueError):
+        kernels.score48_mode(c, alive, qpts[:, :47].contiguous())
+
+
+@pytest.mark.parametrize("P", [16, 64, 128])
+def test_values48_decision_ignores_dead_pixels(P):
+    """The premise of the kernel's phase 1: accept, tile_type and every
+    alive pixel's idx do not change when the dead pixels' a_c/b_c are
+    replaced by random values in +-5000."""
+    rng = np.random.default_rng(40 + P)
+    args = list(_rand_inputs(rng, 60, P, 12))
+    want = kernels.values48_plain(*(torch.from_numpy(a) for a in args))
+    dead = ~args[1][:, :, None]
+    for k in (2, 3):
+        args[k] = np.where(dead, rng.integers(-5000, 5001, args[k].shape),
+                           args[k]).astype(np.int32)
+    got = kernels.values48_plain(*(torch.from_numpy(a) for a in args))
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    alive = torch.from_numpy(args[1])
+    assert torch.equal(got[2][alive], want[2][alive])
+
+
+def test_values48_all_dead_tiles_take_the_last_lut_window_3():
+    """On a tile with no alive pixel, window 3 of every LUT takes it with
+    diff 0 and the scan's ties go to the later LUT: e_sel = E - 1,
+    bitmode 0, and every idx is the first-min point of that LUT's 8-point
+    window (dead pixels' wild normalizations included)."""
+    rng = np.random.default_rng(12)
+    args = list(_rand_inputs(rng, 40, 16, 7))
+    args[1][::3] = False
+    acc, tile_type, idx = (x.numpy() for x in kernels.values48_plain(
+        *(torch.from_numpy(a) for a in args)))
+    dead = ~args[1].any(1)
+    assert dead.sum() >= 13
+    assert acc[dead].all()
+    assert (((tile_type[dead] >> 6) & 0xFF) == 6).all()
+    assert ((tile_type[dead] >> 14) == 0).all()
+    assert np.array_equal(tile_type[dead] & 63, args[4][dead, 6])
+    assert np.array_equal(idx[dead], _v48_idx_numpy(args, tile_type)[dead])
 
 
 def _pass_operands(rng, G, P, R, entry_hi=129):

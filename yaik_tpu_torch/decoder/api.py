@@ -1,10 +1,11 @@
 """Public decode API of the port.
 
-`decode_image(stream, lut, device)` decodes one `.yaik` stream on `device`
-("cuda" for the hand kernels, "cpu" for their plain versions): every
-stream the JAX engine decodes, RGB or RGBA, with all-plane and
-plane-variant GTIL, 3DTL/3DTX, 2DTL, UCOL/SMAP and 1DTL chunks (PLNT
-chunks are validated and skipped, as by every decoder of the codec).
+`decode_image(stream, lut, device="cuda")` decodes one `.yaik` stream on
+`device` ("cuda", the default, for the hand kernels, "cpu" for their plain
+versions): every stream the JAX engine decodes, RGB or RGBA, with
+all-plane and plane-variant GTIL, 3DTL/3DTX, 2DTL, UCOL/SMAP and 1DTL
+chunks (PLNT chunks are validated and skipped, as by every decoder of the
+codec).
 `lut` is a `LutBank` (from `assign_lut(lut, lut2d)`; a stream with 2DTL
 tiles needs the 2D LUT), or any object with the same `expanded` and
 `expanded2d` dicts (the JAX package's `LutBank`), or the raw bytes of a
@@ -74,10 +75,10 @@ _TABLES = DeviceTables(lambda bank, dev: engine.Tables.build(
     bank.expanded, bank.expanded2d, dev))
 
 
-def decode_image(stream: bytes, lut: LutBank | bytes, device,
+def decode_image(stream: bytes, lut: LutBank | bytes, device="cuda",
                  t3_d1: bool = False, grad_final: bool = False) -> np.ndarray:
-    """Decode a stream on `device`; returns [H, W, 3] u8, or [H, W, 4] for
-    a stream with alpha."""
+    """Decode a stream on `device` (the card unless the caller asks for
+    "cpu"); returns [H, W, 3] u8, or [H, W, 4] for a stream with alpha."""
     dev = engine.device_of(device)
     if isinstance(lut, (bytes, bytearray)):
         lut = assign_lut(bytes(lut))

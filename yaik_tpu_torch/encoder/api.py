@@ -1,10 +1,10 @@
 """Public encode API of the port.
 
-`encode_image(rgb, bank, device, config=None)` encodes one RGB image with
-all tile scoring on `device` ("cuda" for the hand kernels, "cpu" for their
-plain versions): the device branch of `yaik_tpu.encoder.context.
-encode_image(engine="device")`, whose streams are byte-identical to the
-host engine's. The host side (gradient emission, palette codec, 3D stream
+`encode_image(rgb, bank, device="cuda", config=None)` encodes one RGB
+image with all tile scoring on `device` ("cuda", the default, for the hand
+kernels, "cpu" for their plain versions): the device branch of
+`yaik_tpu.encoder.context.encode_image(engine="device")`, whose streams
+are byte-identical to the host engine's. The host side (gradient emission, palette codec, 3D stream
 emission, the 1D residual, chunk mux and zstd) is the port's copy of the
 JAX package's framework-neutral code (`encoder/context.py`,
 `gradient.py`, `palette_codec.py`, `dyn1d.py`, `emit.py`, `native/`).
@@ -57,7 +57,7 @@ def _check(rgb: np.ndarray, cfg: EncoderConfig) -> None:
                                   "(ROADMAP Queue 1)")
 
 
-def score_image(rgb: np.ndarray, bank: bankmod.Bank, device,
+def score_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
                 config: EncoderConfig | None = None, plain: bool = False):
     """All tile scoring of one image on `device`: (the 7 gradient accept
     grids, the six 3D passes' result dicts), as numpy arrays. `plain`
@@ -165,7 +165,7 @@ def emit_image(rgb: np.ndarray, accepts: list, t3: list,
     return b"".join(p if isinstance(p, bytes) else p() for p in parts)
 
 
-def encode_image(rgb: np.ndarray, bank: bankmod.Bank, device,
+def encode_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
                  config: EncoderConfig | None = None) -> bytes:
     """Encode an [h, w, 3] u8 image (dims multiples of 8) with the
     default passes, scoring on `device`; returns the .yaik bytes."""

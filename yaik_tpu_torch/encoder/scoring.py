@@ -7,8 +7,8 @@
 - `tile3d_operands` / `tile3d_pass`: one dense 3D LUT size pass
   (`tile3d_pass_resident_b` with B = 1 and no scoring cap): tile
   extraction, the claims mask, the per-tile bbox, the two normalization
-  chains, `kernels.score48`, the first-min pattern argmin, `kernels.values48`
-  and the claims update.
+  chains, `kernels.score48_mode` (the pattern scores and their first-min
+  argmin in one kernel), `kernels.values48` and the claims update.
 
 Everything is int32 and wraps where the JAX package's int32 arithmetic
 wraps (dead pixels below a tile's alive minimum overflow `k63 * magic`);
@@ -135,13 +135,6 @@ def tile3d_operands(planes: torch.Tensor, claims: torch.Tensor, sx: int,
     return Tile3DOperands(tiles.contiguous(), mask, c, q, b_c, mn, mx, pre)
 
 
-def pattern_argmin(sums: torch.Tensor) -> torch.Tensor:
-    """mode48 [T, E] i32: the first pattern of least score, as the
-    reference's strict-< scan picks it (torch.argmin returns the first
-    index of the minimum)."""
-    return sums.argmin(-1).to(torch.int32)
-
-
 def tile3d_pass(planes: torch.Tensor, claims: torch.Tensor,
                 tables: BankTables, sx: int, sy: int, plain: bool = False):
     """One dense 3D LUT pass. Returns (accept [T] bool, tile_type [T] i32,
@@ -149,10 +142,9 @@ def tile3d_pass(planes: torch.Tensor, claims: torch.Tensor,
     `plain` scores with the kernels' plain versions on any device."""
     ops = tile3d_operands(planes, claims, sx, sy)
     alive = ~ops.mask
-    score = kernels.score48_plain if plain else kernels.score48
+    score = kernels.score48_mode_plain if plain else kernels.score48_mode
     values = kernels.values48_plain if plain else kernels.values48
-    sums = score(ops.c, alive, tables.qpts)
-    mode48 = pattern_argmin(sums)
+    mode48 = score(ops.c, alive, tables.qpts)
     acc, tile_type, idx = values(ops.tiles, alive, ops.a_c, ops.b_c, mode48,
                                  ops.mn, ops.mx - ops.mn, tables.pts,
                                  tables.factors)

@@ -53,9 +53,11 @@ SIGNATURES = {
     "yaik_lut_pass": (P, I, P, P, P, P, I, I, I, I, I, I, P, P),
     # c, alive, qpts, T, P, E, out, stream
     "yaik_score48": (P, P, P, L, I, I, P, P),
-    # tiles, alive, a_c, b_c, mode48, mn, d, pts, factors, T, P, E,
-    # accept, tile_type, idx, stream
-    "yaik_values48": (P, P, P, P, P, P, P, P, P, L, I, I, P, P, P, P),
+    # c, alive, qpts, T, P, E, mode48, stream
+    "yaik_score48_mode": (P, P, P, L, I, I, P, P),
+    # tiles, alive, a_c, b_c, mode48, mn, d, pts, factors, scratch, T, P,
+    # E, accept, tile_type, idx, stream
+    "yaik_values48": (P, P, P, P, P, P, P, P, P, P, L, I, I, P, P, P, P),
 }
 
 

@@ -16,6 +16,8 @@ Counterpart of `yaik_tpu/ops/pallas_kernels.py` for the device decode
 - `lut_pass` (csrc/lut_pass.cu) replaces `lut3d_vals` and
   `lut3d_vals_dict` on one T3 or 2DTL size pass, writing image order;
 - `score48` (csrc/score48.cu) replaces the Pallas `score48`;
+- `score48_mode` (csrc/score48.cu, the pattern-argmin epilogue) replaces
+  the Pallas `score48` together with the `argmin` that follows it;
 - `values48` (csrc/values48.cu) replaces the Pallas `values48` and the XLA
   values stage it twins.
 
@@ -450,10 +452,22 @@ def score48_plain(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
     return torch.cat(out).reshape(T, E, 48)
 
 
-def score48(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
-            ) -> torch.Tensor:
-    """48-pattern tile scores (see score48_plain); all operands contiguous
-    on one device. P must be a power of two <= 512."""
+def pattern_argmin(sums: torch.Tensor) -> torch.Tensor:
+    """mode48 [T, E] i32 of sums [T, E, 48]: the first pattern of least
+    score, as the reference's strict-< scan picks it (torch.argmin returns
+    the first index of the minimum)."""
+    return sums.argmin(-1).to(torch.int32)
+
+
+def score48_mode_plain(c: torch.Tensor, alive: torch.Tensor,
+                       qpts: torch.Tensor) -> torch.Tensor:
+    """The pattern of each (tile, LUT): operands as score48_plain ->
+    mode48 [T, E] i32, the pattern_argmin of its sums."""
+    return pattern_argmin(score48_plain(c, alive, qpts))
+
+
+def _score(fn, name: str, plain, c: torch.Tensor, alive: torch.Tensor,
+           qpts: torch.Tensor, out_shape) -> torch.Tensor:
     dev = c.device
     if c.ndim != 3 or qpts.ndim != 4:
         raise ValueError("c must be [T, P, 3] and qpts [E, 48, 8, 3]")
@@ -462,20 +476,40 @@ def score48(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
     _expect(alive, "alive", torch.bool, (T, P), dev)
     _expect(qpts, "qpts", torch.int32, (E, 48, 8, 3), dev)
     if not _route(dev):
-        return score48_plain(c, alive, qpts)
+        return plain(c, alive, qpts)
     if P < 1 or P > 512 or P & (P - 1):
         raise ValueError(f"tile size {P} is not a power of two <= 512")
-    out = torch.empty((T, E, 48), dtype=torch.int32, device=dev)
+    out = torch.empty(out_shape(T, E), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        err = build.library().yaik_score48(
+        err = getattr(build.library(), name)(
             c.data_ptr(), alive.data_ptr(), qpts.data_ptr(), T, P, E,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "yaik_score48")
-    score48.launches += 1
+    build.check(err, name)
+    fn.launches += 1
     return out
 
 
+def score48(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
+            ) -> torch.Tensor:
+    """48-pattern tile scores (see score48_plain); all operands contiguous
+    on one device. P must be a power of two <= 512."""
+    return _score(score48, "yaik_score48", score48_plain, c, alive, qpts,
+                  lambda T, E: (T, E, 48))
+
+
 score48.launches = 0
+
+
+def score48_mode(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
+                 ) -> torch.Tensor:
+    """mode48 [T, E] i32, the first pattern of least score (see
+    score48_mode_plain), without the [T, E, 48] sums; operands as
+    score48."""
+    return _score(score48_mode, "yaik_score48_mode", score48_mode_plain, c,
+                  alive, qpts, lambda T, E: (T, E))
+
+
+score48_mode.launches = 0
 
 # values48's four bit-depth windows: (step into pts, points); window bi
 # takes factors[3 - bi]
@@ -562,8 +596,11 @@ def values48(tiles: torch.Tensor, alive: torch.Tensor, a_c: torch.Tensor,
              b_c: torch.Tensor, mode48: torch.Tensor, mn: torch.Tensor,
              d: torch.Tensor, pts: torch.Tensor, factors: torch.Tensor):
     """The values stage (see values48_plain); all operands contiguous on
-    one device. P must be a power of two <= 256 and E <= 60 (the tables
-    fill E * 3840 + 64 bytes of the 227 KB of shared memory)."""
+    one device. P must be a power of two <= 256 and E <= 128 (the Pallas
+    kernel's limit), and every point of `pts` must lie in 0..255, as the
+    bank's u8 points do (`bank.load_bank_file` reads them as u8): the
+    kernel's integer search is exact there. One call runs three CUDA kernels (table
+    packing, the decision, every pixel's idx) and adds one to `launches`."""
     dev = tiles.device
     if tiles.ndim != 3 or mode48.ndim != 2:
         raise ValueError("tiles must be [T, P, 3] and mode48 [T, E]")
@@ -584,8 +621,9 @@ def values48(tiles: torch.Tensor, alive: torch.Tensor, a_c: torch.Tensor,
                               factors)
     if P < 1 or P > 256 or P & (P - 1):
         raise ValueError(f"tile size {P} is not a power of two <= 256")
-    if E > 60:
-        raise ValueError(f"{E} LUTs exceed the kernel's shared memory")
+    if E > 128:
+        raise ValueError(f"{E} LUTs exceed the kernel's limit of 128")
+    scratch = torch.empty((2, E, 120, 4), dtype=torch.int32, device=dev)
     accept = torch.empty(T, dtype=torch.bool, device=dev)
     tile_type = torch.empty(T, dtype=torch.int32, device=dev)
     idx = torch.empty((T, P), dtype=torch.int32, device=dev)
@@ -593,8 +631,8 @@ def values48(tiles: torch.Tensor, alive: torch.Tensor, a_c: torch.Tensor,
         err = build.library().yaik_values48(
             tiles.data_ptr(), alive.data_ptr(), a_c.data_ptr(),
             b_c.data_ptr(), mode48.data_ptr(), mn.data_ptr(), d.data_ptr(),
-            pts.data_ptr(), factors.data_ptr(), T, P, E, accept.data_ptr(),
-            tile_type.data_ptr(), idx.data_ptr(),
+            pts.data_ptr(), factors.data_ptr(), scratch.data_ptr(), T, P,
+            E, accept.data_ptr(), tile_type.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_values48")
     values48.launches += 1
