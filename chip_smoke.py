@@ -44,6 +44,15 @@ counting each kernel's launches against what the operands call for:
   `decode_corpus` of 52 streams of four sizes in a shuffled order (its
   64² batch mixes alpha with no alpha), one planner thread and all host
   cores, each equal to `decode_image`'s.
+- batched, compacted encode through `yaik_tpu_torch.encoder.batch`:
+  `encode_batch` of img512, img512b and six seeded variants (B = 8), with
+  `score48_mode` and `values48` launched once per 3D pass for the batch
+  and held against their plain versions on the B * C compacted operands
+  of its 4x4 pass; `encode_corpus` of 16 images in a shuffled order
+  (10 x 512², a short second batch; 5 x 128² with a noise image past the
+  default caps, which grow; the 3840x2160 image, a batch of one); and
+  `encode_image_banded` of the 4K image in bands of 544 rows, every
+  stream equal to `encode_image`'s.
 The decode kernels are held against their plain versions on a batch too
 (B = 4: img512, img512b and the RGB of bench_rgba512 and bench_2d512, and
 random operands; each image of a batch against its own unbatched call,
@@ -62,13 +71,22 @@ by kernel name, and the batch path is timed: the core's device time per
 image at B = 1, 4, 16 and 64 (512², split and fused), each decode kernel
 on a batch of 16 against 16 unbatched calls, the upload of a B = 16 batch
 (and what a pinned copy of its bytes would cost), decode_batch by stage,
-and decode_corpus end to end (MPix/s, images/s).
+and decode_corpus end to end (MPix/s, images/s). So is the batch encode:
+device scoring per 512² image at B = 1, 4 and 16 (queued, back-to-back,
+and the profiler's kernel sum), the scoring cap against dense scoring
+(the 4x4 pass's operand stage and all six 3D passes; B = 16 512² and the
+4K image), the transients' peak per pixel, the bytes each download form
+takes per image, and encode_corpus end to end with no emission threads
+and one per host core (MPix/s, images/s, and the host's time in
+dispatch, waiting on the card and emission).
 A kernel's launches are its wrapper's calls: a `values48` call runs three
 CUDA kernels (table packing, decision, idx).
 
 The last lines are the card as nvidia-smi names it, one JSON line with the
 kernels (time, plain time, the card's least time for the same work and what
-bounds it), and `{"ok": true, "device": {...}}`. Any failure raises, and the
+bounds it; each kernel's launches summed over the main-path runs, for the
+encode kernels the `encode_image` run and the batch encode runs), and
+`{"ok": true, "device": {...}}`. Any failure raises, and the
 script exits non-zero; so does a run without a GPU, where it prints no
 result.
 """
@@ -915,6 +933,142 @@ def main() -> int:
     if not ok:
         raise AssertionError("the 4K stream decodes wrong on the card")
 
+    lap("3d")
+    # -- phase 3d: batched, compacted encode through the user's entry
+    # points (yaik_tpu_torch.encoder.batch): score48_mode and values48 run
+    # once per 3D pass per batch, whatever B is -------------------------
+    from yaik_tpu_torch.encoder import batch as ebatch
+
+    def variant(img, i):
+        """Corpus member i of a base image: itself for i < 2, else rolled
+        by multiples of 8 (tile alignment kept) and flipped."""
+        if i < 2:
+            return img
+        v = np.roll(img, 8 * ((i * 7) % 63 + 1), axis=1)
+        v = np.roll(v, 8 * ((i * 5) % 63 + 1), axis=0)
+        return np.ascontiguousarray(v[::-1] if i % 3 == 1 else
+                                    v[:, ::-1] if i % 3 == 2 else v)
+
+    enc_ref = {}
+
+    def enc_want(key, img):
+        """encode_image's stream of an image, on the card, once."""
+        if key not in enc_ref:
+            enc_ref[key] = yaik_tpu_torch.encode_image(img, bank3d,
+                                                       device="cuda")
+        return enc_ref[key]
+
+    enc_ref["img512", 0] = encoded["img512"]
+    enc_ref["bench_4k", 0] = encoded["bench_4k"]
+    base512 = {"img512": images["img512"],
+               "img512b": np.asarray(Image.open(FIX / "img512b.png"))}
+    enc8 = [(("img512", "img512b")[i % 2], i) for i in range(8)]
+    img_of = {k: variant(base512[k[0]], k[1]) for k in enc8}
+    # twice: the first call starts from the default caps and grows them
+    # where the images overflow them (one more dispatch of the batch); the
+    # second starts from the caps learned
+    cfg = api.EncoderConfig()
+    ebatch._CAP_STATE.clear()
+    dispatches = []
+    for which in ("first", "second"):
+        for name in ENCODE_KERNELS:
+            getattr(kernels, name).launches = 0
+        got = ebatch.encode_batch([img_of[k] for k in enc8], bank3d,
+                                  device="cuda")
+        enc_batch_launches = {name: getattr(kernels, name).launches
+                              for name in ENCODE_KERNELS}
+        learned = ebatch._CAP_STATE.get((512, 512, cfg.reject_factor))
+        print(f"launches in the {which} encode_batch of img512, img512b and 6 "
+              f"variants (B = 8): {enc_batch_launches}; caps learned "
+              f"{learned} (default {pipeline.pass_caps(512, 512)})")
+        n = enc_batch_launches["score48_mode"] // 6
+        if (enc_batch_launches != {"score48": 0, "score48_mode": 6 * n,
+                                   "values48": 6 * n} or n < 1
+                or which == "second" and n != 1):
+            raise AssertionError("encode_batch does not launch score48_mode "
+                                 "and values48 once per 3D pass per batch")
+        dispatches.append(n)
+        for k, st in zip(enc8, got):
+            if st != enc_want(k, img_of[k]):
+                raise AssertionError(f"encode_batch: {k} differs from "
+                                     "encode_image")
+        for name, k in enc_batch_launches.items():
+            launches[name] += k
+    print(f"encode_batch B = 8 512x512: each stream equal to encode_image's "
+          f"in both calls; the batch was scored {dispatches[0]} then "
+          f"{dispatches[1]} times, each time one score48_mode and one "
+          "values48 launch per 3D pass")
+
+    # the kernels on the B * C compacted operands of the batch's 4x4 pass,
+    # at the caps learned
+    caps512 = ebatch._CAP_STATE.get((512, 512, cfg.reject_factor),
+                                    pipeline.pass_caps(512, 512))
+    planes8 = ebatch._upload([img_of[k] for k in enc8], dev)
+    _, claims8 = ebatch._score_gradients(planes8, cfg)
+    for (sx, sy), (scap, _) in zip(swizzle.TILE3D_PASS_ORDER[:-1],
+                                   caps512[:-1]):
+        scoring.tile3d_pass_b(planes8, claims8, tabs, sx, sy, scap)
+    bo = scoring.tile3d_operands_b(planes8, claims8, 2, 2, caps512[-1][0])
+    print(f"encode_batch B = 8 pass 4x4: cap {caps512[-1][0]} of "
+          f"{512 * 512 // 16} tiles per image, alive-tile counts "
+          f"{bo.alive_cnt.tolist()}; B * C = {bo.ops.c.shape[0]} rows")
+    check_score_values("encode_batch B = 8 pass 4x4, B * C rows", bo.ops)
+    del planes8, claims8, bo
+
+    # a corpus of 16 in a shuffled order: 512^2 x 10 (a short second
+    # batch), 128^2 x 5 with a noise image past the default caps, and the
+    # 3840x2160 image, whose group is a batch of one under the ceiling
+    noise = np.random.default_rng(11).integers(0, 256, (128, 128, 3),
+                                               np.uint8)
+    base_of = {**base512, "img128": np.asarray(Image.open(
+        FIX / "img128.png")), "quilt128": np.asarray(Image.open(
+            FIX / "quilt128.png")), "noise128": noise,
+        "bench_4k": images["bench_4k"]}
+    ckeys = ([(("img512", "img512b")[i % 2], i) for i in range(10)]
+             + [("img128", 0), ("quilt128", 0), ("noise128", 0),
+                ("img128", 2), ("quilt128", 3), ("bench_4k", 0)])
+    ckeys = [ckeys[i] for i in np.random.default_rng(7).permutation(
+        len(ckeys))]
+    img_of.update({k: variant(base_of[k[0]], k[1]) for k in ckeys})
+    corpus_imgs = [img_of[k] for k in ckeys]
+    enc_mpix = sum(im.shape[0] * im.shape[1] for im in corpus_imgs) / 1e6
+    ebatch._CAP_STATE.clear()
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
+    got = ebatch.encode_corpus(corpus_imgs, bank3d, batch_size=8,
+                               device="cuda")
+    corpus_launches = {name: getattr(kernels, name).launches
+                       for name in ENCODE_KERNELS}
+    learned = ebatch._CAP_STATE.get((128, 128, cfg.reject_factor))
+    print(f"encode_corpus of {len(ckeys)} images ({enc_mpix:.2f} MPix, "
+          f"batch_size 8): launches {corpus_launches}; caps learned for "
+          f"128x128 {learned} (default {pipeline.pass_caps(128, 128)})")
+    if learned is None:
+        raise AssertionError("the noise image did not make the caps grow")
+    for k, st in zip(ckeys, got):
+        if st != enc_want(k, img_of[k]):
+            raise AssertionError(f"encode_corpus: {k} differs from "
+                                 "encode_image")
+    back = yaik_tpu_torch.decode_image(got[ckeys.index(("bench_4k", 0))],
+                                       bank, device="cuda")
+    if not np.array_equal(back, yaik_tpu_torch.decode_image(
+            stream4k, bank, device="cpu")):
+        raise AssertionError("the corpus 4K stream decodes wrong")
+    print("encode_corpus: each stream equal to encode_image's, in input "
+          "order; the 4K stream decoded on the card equal to encode_image's "
+          "4K stream decoded on the CPU")
+    for name, k in corpus_launches.items():
+        launches[name] += k
+    t = time.perf_counter()
+    banded = ebatch.encode_image_banded(img4k, bank3d, device="cuda",
+                                        band_rows=544)
+    print(f"encode_image_banded bench_4k, bands of 544 rows (544 x 3 + 528) "
+          f"({time.perf_counter() - t:.2f} s): "
+          f"{'equal to' if banded == stream4k else 'DIFFERS from'} "
+          "encode_image's stream")
+    if banded != stream4k:
+        raise AssertionError("encode_image_banded differs from encode_image")
+
     lap("4")
     # -- phase 4: timing ---------------------------------------------------
     kms = {}
@@ -1259,6 +1413,149 @@ def main() -> int:
             if row:
                 kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
                 bounds[name] = b[name]
+
+    # the batch encode path (phase 3d's images): device scoring per 512^2
+    # image at B = 1, 4, 16 (the gradient stage and the six compacted 3D
+    # passes, no download), the cap's saving, the bytes each download
+    # takes, the transients' peak, and encode_corpus end to end
+    enc16 = [img_of[(("img512", "img512b")[i % 2], i)] if i < 10 else
+             variant(base512[("img512", "img512b")[i % 2]], i)
+             for i in range(16)]
+    perms512 = pipeline.scan_perms(512, 512, dev)
+
+    def score_batch(planes, caps):
+        _, claims = ebatch._score_gradients(planes, cfg)
+        return pipeline._tile3d_all_compact(planes, claims, tabs, perms512,
+                                            caps)
+    from torch.profiler import ProfilerActivity, profile
+    for B in (1, 4, 16):
+        planes = ebatch._upload(enc16[:B], dev)
+        ms = cuda_ms(lambda: score_batch(planes, caps512), 1)
+        b2b = cuda_ms(lambda: score_batch(planes, caps512), 3, queued=False)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            score_batch(planes, caps512)
+            torch.cuda.synchronize()
+        evs = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
+        busy = sum(ev.device_time_total for ev in evs) / 1e3
+        nl = sum(ev.count for ev in evs)
+        mpix = B * 512 * 512 / 1e6
+        # past ~1,000 queued launches the host blocks behind the sleep, so
+        # the profiler's kernel sum is the device time of a batch
+        print(f"time encode scoring B={B} 512x512 (gradients + compacted 3D "
+              f"passes at the caps learned, blob on the card): device "
+              f"(kernel sum, profiler) {busy:.3f} ms/batch, "
+              f"{busy / B:.4f} ms/image ({mpix / busy * 1e3:.1f} MPix/s) in "
+              f"{nl} launches; queued behind a sleep {ms:.3f} ms/batch "
+              f"({ms / B:.4f} ms/image); back-to-back {b2b:.3f} ms/batch, "
+              f"{b2b / B:.4f} ms/image ({mpix / b2b * 1e3:.1f} MPix/s) "
+              f"[{card}]")
+    # what the cap saves: the 4x4 pass's operand stage, and all six 3D
+    # passes with their scoring, capped against dense (B = 16 512^2, and
+    # the 4K image alone), on the claims the gradient stage leaves
+    for label, imgs in (("B=16 512x512", enc16), ("B=1 3840x2160",
+                                                  [img4k])):
+        planes = ebatch._upload(imgs, dev)
+        h, w = imgs[0].shape[:2]
+        caps = ebatch._CAP_STATE.get((h, w, cfg.reject_factor),
+                                     pipeline.pass_caps(w, h))
+        perms = pipeline.scan_perms(w, h, dev)
+        _, claims0 = ebatch._score_gradients(planes, cfg)
+        ops_ms, all_ms = {}, {}
+        for form in ("dense", "capped", "capped", "dense"):
+            cap = None if form == "dense" else caps[-1][0]
+            ops_ms.setdefault(form, []).append(cuda_ms(
+                lambda: scoring.tile3d_operands_b(planes, claims0, 2, 2, cap),
+                5))
+
+            def passes():
+                claims = claims0.clone()
+                if form == "dense":
+                    return pipeline._tile3d_all(planes, claims, tabs)
+                return pipeline._tile3d_all_compact(planes, claims, tabs,
+                                                    perms, caps)
+            all_ms.setdefault(form, []).append(cuda_ms(passes, 1))
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        score = (score_batch if label.startswith("B=16") else
+                 lambda p, c: pipeline._tile3d_all_compact(
+                     p, ebatch._score_gradients(p, cfg)[1], tabs, perms, c))
+        score(planes, caps)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        npx = len(imgs) * h * w
+        print(f"time encode 3D stage {label}, caps {caps}: operands of "
+              f"the 4x4 pass "
+              f"dense {ops_ms['dense'][0]:.3f} / {ops_ms['dense'][1]:.3f} "
+              f"ms, capped (C = {caps[-1][0]}) {ops_ms['capped'][0]:.3f} / "
+              f"{ops_ms['capped'][1]:.3f} ms; six passes with scoring dense "
+              f"{all_ms['dense'][0]:.3f} / {all_ms['dense'][1]:.3f} ms, "
+              f"capped {all_ms['capped'][0]:.3f} / {all_ms['capped'][1]:.3f} "
+              f"ms (dense, capped, capped, dense); peak transients of the "
+              f"capped scoring {peak / 1e6:.1f} MB, {peak / npx:.1f} B/pixel "
+              f"[{card}]")
+        del planes, claims0
+    # bytes downloaded per image: encode_image's dense dicts, the dense
+    # packed rows (the banded path), and the compact blob
+    for w, h in ((512, 512), (3840, 2160)):
+        dense = packed = ebatch._grad_packed_len(w, h)
+        for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
+            T, P = (h >> sy) * (w >> sx), 1 << (sx + sy)
+            dense += T * (1 + 4 + 6 + 2 * P)  # accept, type, bbox, idx, mask
+            packed += T * (P + 9)
+        compact = {}
+        for which, caps in (("default", pipeline.pass_caps(w, h)),
+                            ("learned", ebatch._CAP_STATE.get(
+                                (h, w, cfg.reject_factor)))):
+            if caps is None:
+                continue
+            compact[which] = ebatch._grad_packed_len(w, h) + sum(
+                -(-pipeline._scan_perm(sx, sy, w, h)[1].shape[0] // 8) + 8
+                + dcap * ((1 << (sx + sy)) + 9)
+                for (sx, sy), (_, dcap) in zip(swizzle.TILE3D_PASS_ORDER,
+                                               caps))
+        print(f"download per {w}x{h} image: encode_image's dense results "
+              f"{dense / 1e6:.3f} MB, dense packed rows {packed / 1e6:.3f} "
+              "MB, compact blob " + ", ".join(
+                  f"at the {k} caps {v / 1e6:.3f} MB ({dense / v:.1f}x less "
+                  "than dense)" for k, v in compact.items()))
+    # encode_corpus end to end; the host's time split by wrapping the
+    # batch module's dispatch, wait and emission
+    spent = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            t = time.perf_counter()
+            try:
+                return fn(*a, **k)
+            finally:
+                spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+        return run
+    orig = (ebatch._dispatch_batch, ebatch._emit_from_unpacked,
+            ebatch._InFlight.wait)
+    ebatch._dispatch_batch = timed("dispatch", orig[0])
+    ebatch._emit_from_unpacked = timed("emit", orig[1])
+    ebatch._InFlight.wait = timed("wait", orig[2])
+    host = os.cpu_count()
+    try:
+        for workers in (0, host, host, 0):
+            spent.clear()
+            t = time.perf_counter()
+            got = ebatch.encode_corpus(corpus_imgs, bank3d, batch_size=8,
+                                       device="cuda", emit_workers=workers)
+            wall = time.perf_counter() - t
+            if any(st != enc_want(k, img_of[k]) for k, st in zip(ckeys, got)):
+                raise AssertionError("encode_corpus differs from encode_image")
+            print(f"time encode_corpus {len(ckeys)} images, {enc_mpix:.2f} "
+                  f"MPix, {workers} emission threads of "
+                  f"{host} host cores: {wall:.3f} s, {enc_mpix / wall:.2f} "
+                  f"MPix/s, {len(ckeys) / wall:.2f} images/s; host dispatch "
+                  f"{spent.get('dispatch', 0):.3f} s, waiting on the card "
+                  f"{spent.get('wait', 0):.3f} s, emission "
+                  f"{spent.get('emit', 0):.3f} s "
+                  f"({spent.get('emit', 0) / wall:.1%} of the wall) [{card}]")
+    finally:
+        (ebatch._dispatch_batch, ebatch._emit_from_unpacked,
+         ebatch._InFlight.wait) = orig
 
     lap("end")
     print(card)

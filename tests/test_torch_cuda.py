@@ -470,3 +470,30 @@ def test_batch_entry_points_default_to_the_card(cuda, bank2d):
     got = batch.decode_corpus(streams, bank2d, batch_size=2)
     assert kernels.grad_plane.launches == g0 + 2
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+def test_encode_batch_cuda_matches_cpu(cuda, bank3d):
+    """encode_batch on the card, one score48_mode and one values48 launch
+    per 3D pass for the batch, gives the CPU run's streams; a noise image
+    overflows the caps and is encoded alone on the card; encode_corpus and
+    encode_image_banded on the card give the same bytes."""
+    from yaik_tpu_torch.encoder import batch
+    imgs = [np.asarray(Image.open(FIX / f"{n}.png"))
+            for n in ("img128", "quilt128")]
+    want = batch.encode_batch(imgs, bank3d, device="cpu")
+    names = ("score48_mode", "values48")
+    before = {n: getattr(kernels, n).launches for n in names}
+    got = batch.encode_batch(imgs, bank3d)
+    after = {n: getattr(kernels, n).launches - k for n, k in before.items()}
+    assert after == {"score48_mode": 6, "values48": 6}
+    assert got == want
+    noise = np.random.default_rng(3).integers(0, 256, (128, 128, 3),
+                                              np.uint8)
+    mixed = [imgs[0], noise, imgs[1], imgs[0][:64, :64].copy()]
+    streams = [yaik_tpu_torch.encode_image(im, bank3d, device=cuda)
+               for im in mixed]
+    assert batch.encode_batch(mixed[:3], bank3d, device=cuda) == streams[:3]
+    assert batch.encode_corpus(mixed, bank3d, batch_size=2,
+                               device=cuda) == streams
+    assert batch.encode_image_banded(imgs[1], bank3d, device=cuda,
+                                     band_rows=48) == want[1]

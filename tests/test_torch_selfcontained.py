@@ -272,6 +272,89 @@ def test_encoder_bank_and_perms_equal_the_jax_package():
     assert [tuple(p) for p in PERMS48] == [tuple(p) for p in JPERMS48]
 
 
+# (w, h) of the compaction's host copies: the tests' sizes, a wide
+# rectangle and 3840x2160
+COMPACT_SIZES = [(64, 64), (128, 128), (512, 256), (3840, 2160)]
+
+
+def _random_blob(rng, w, h, caps, B=2):
+    """A `_tile3d_all_compact` blob of B images with random content:
+    accept bits, counts up to each download cap, alive counts and rows
+    (idx | mask << 6, accept, type, bbox)."""
+    from yaik_tpu_torch.encoder.emit import _scan_perm
+    from yaik_tpu_torch.format import swizzle
+    parts = []
+    for (sx, sy), (_, dcap) in zip(swizzle.TILE3D_PASS_ORDER, caps):
+        P = (1 << sx) * (1 << sy)
+        Ts = _scan_perm(sx, sy, w, h)[1].shape[0]
+        cnt = rng.integers(0, dcap + 1, B).astype("<u4")
+        alive = rng.integers(0, Ts + 1, B).astype("<u4")
+        rows = rng.integers(0, 256, (B, dcap, P + 9), np.uint8)
+        rows[:, :, :P] &= 0x7F
+        parts += [rng.integers(0, 256, (B, -(-Ts // 8)), np.uint8),
+                  cnt.view(np.uint8).reshape(B, 4),
+                  alive.view(np.uint8).reshape(B, 4), rows.reshape(B, -1)]
+    return np.concatenate(parts, axis=1)
+
+
+@pytest.mark.parametrize("w,h", COMPACT_SIZES)
+def test_compaction_host_copies_equal_the_jax_package(w, h, monkeypatch):
+    """_scan_perm, pass_caps (its keyword fractions against the JAX
+    package's environment variables), caps_fit, unpack_compact,
+    emit_tile3d_streams_compact, _grad_packed_len and _band_rows (against
+    the JAX package's DEVICE_SCORE_MAX_PIX) equal their originals."""
+    from yaik_tpu.encoder import batch as jbatch
+    from yaik_tpu.encoder import device_pipeline as devp
+    from yaik_tpu_torch.encoder import batch, emit, pipeline
+    from yaik_tpu_torch.format import swizzle
+    for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
+        for a, b in zip(emit._scan_perm(sx, sy, w, h),
+                        devp._scan_perm(sx, sy, w, h)):
+            _assert_same(a, b, f"_scan_perm {sx} {sy}")
+    caps = pipeline.pass_caps(w, h)
+    assert caps == devp.pass_caps(w, h)
+    assert pipeline.pass_caps(w, h, scale=4) == devp.pass_caps(w, h, 4)
+    monkeypatch.setenv("YAIK_ENC_CAP_FRAC", "3")
+    monkeypatch.setenv("YAIK_ENC_DCAP_FRAC", "40")
+    assert pipeline.pass_caps(w, h, 3, 40) == devp.pass_caps(w, h)
+    monkeypatch.delenv("YAIK_ENC_CAP_FRAC")
+    monkeypatch.delenv("YAIK_ENC_DCAP_FRAC")
+    assert batch._grad_packed_len(w, h) == jbatch._grad_packed_len(w, h)
+    for max_pix in (1, w * 48 + 5, 2 << 20, batch.DEVICE_SCORE_MAX_PIX):
+        monkeypatch.setattr(jbatch, "DEVICE_SCORE_MAX_PIX", max_pix)
+        assert batch._band_rows(w, h, max_pix) == jbatch._band_rows(w, h)
+
+    rng = np.random.default_rng(w + h)
+    flat = _random_blob(rng, w, h, caps)
+    mine = pipeline.unpack_compact(flat, w, h, caps)
+    theirs = devp.unpack_compact(flat, w, h, caps)
+    _assert_same(mine, theirs, "unpack_compact")
+    # caps_fit: nothing overflowed (the caps themselves come back), then
+    # the random counts, which overflow the scoring caps
+    fitting = [dict(r, alive=np.minimum(r["alive"], scap))
+               for r, (scap, _) in zip(mine, caps)]
+    assert pipeline.caps_fit(fitting, caps, w, h) is caps
+    assert devp.caps_fit(fitting, caps, w, h) is caps
+    assert pipeline.caps_fit(mine, caps, w, h) == devp.caps_fit(theirs, caps,
+                                                                w, h)
+
+    def streams():
+        return {"color": bytearray(), "type": [], 3: bytearray(),
+                4: bytearray(), 5: bytearray(), 6: bytearray(),
+                "maps": {k: np.zeros(swizzle.bitmap_size_bytes(*k, w, h) * 8,
+                                     np.uint8)
+                         for k in swizzle.TILE3D_PASS_ORDER}}
+    for i in range(2):
+        per_img = [{"shift": r["shift"], "bits_scan": r["bits_scan"][i],
+                    "count": r["count"][i], "rows": r["rows"][i]}
+                   for r in mine]
+        got, want = streams(), streams()
+        emit.emit_tile3d_streams_compact(per_img, w, h, got)
+        devp.emit_tile3d_streams_compact(per_img, w, h, want)
+        assert len(got["type"]) == sum(int(r["count"][i]) for r in mine)
+        _assert_same(got, want, f"emit_tile3d_streams_compact[{i}]")
+
+
 # -- chip_smoke's reference values are current --------------------------------
 
 @pytest.fixture(scope="module")

@@ -20,7 +20,12 @@ keywords choose the fused standard decode (`t3_merged_d1` and
 as one batch, each kernel launched once for it), `decode_spatial` (one
 image in horizontal bands, the equal bands as one batch) and
 `decode_corpus` (grouped by size, planned on the host, batch k+1 queued
-on the card before batch k is downloaded).
+on the card before batch k is downloaded). `encoder.batch` encodes many
+images: `encode_batch` (same-shape images as one batch, each scoring kernel
+launched once per 3D pass for it, only the accept bits and the accepted
+tiles' rows downloaded), `encode_corpus` (grouped by shape, batches queued
+on the card ahead of the host's emission, caps grown where content
+overflows them) and `encode_image_banded` (one image in 16-row bands).
 
 Layout:
   format/, entropy/    - stream structs, swizzle, LUT files, zstd, palette
@@ -34,12 +39,16 @@ Layout:
                          decode_corpus
   encoder/bank.py      - load_bank: the 3D LUT bank's points and factors
   encoder/tables.py    - the 3D LUT bank as the scoring kernels take it
-  encoder/scoring.py   - gradient and dense 3D pass scoring (torch + kernels)
-  encoder/pipeline.py  - all 13 passes of one image on the device
-  encoder/emit.py      - 3D stream emission from the scoring results (numpy)
+  encoder/scoring.py   - gradient and 3D pass scoring of an image or a
+                         batch, with the alive-tile cap (torch + kernels)
+  encoder/pipeline.py  - the passes on the device: one image, dense; a batch,
+                         packed and compacted; the compaction's host side
+  encoder/emit.py      - 3D stream emission from the scoring results, dense
+                         or compacted (numpy)
   encoder/context.py, gradient.py, dyn1d.py, palette_codec.py
                        - host emission: chunks, GTIL streams, 1D, palette
   encoder/api.py       - encode_image(rgb, bank, device, config=None)
+  encoder/batch.py     - encode_batch, encode_corpus, encode_image_banded
   ops/kernels.py       - kernel wrappers beside their plain torch versions
   ops/build.py         - nvcc build at first use into build/yaik_tpu_torch/
   convert.py           - the JAX engine's operands -> the port's, for tests

@@ -76,14 +76,22 @@ def score_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
 
 
 def emit_image(rgb: np.ndarray, accepts: list, t3: list,
-               config: EncoderConfig | None = None) -> bytes:
-    """The .yaik stream of an image from its scoring results (host only)."""
+               config: EncoderConfig | None = None,
+               defer: _ZstdBatch | None = None):
+    """The .yaik stream of an image from its scoring results (host only):
+    the 7 gradient accept grids, and the six 3D passes' results, dense
+    (`score_image`'s dicts) or compacted (`pipeline.unpack_compact`'s
+    dicts of one image: shift, bits_scan, count, rows).
+
+    With `defer`, the image's streams queue on that shared zstd batch and
+    a zero-argument maker of the bytes is returned: the caller runs the
+    batch once for many images (the JAX package's `_defer`)."""
     cfg = config or EncoderConfig()
     _check(rgb, cfg)
     h, w = rgb.shape[:2]
     planes = rgb.transpose(2, 0, 1).astype(np.int32)             # [3, H, W]
     parts: list = [FileHeader(MAGIC, 1, w, h, 0).pack()]
-    zb = _ZstdBatch()
+    zb = _ZstdBatch() if defer is None else defer
     use_native = native.available()
     pal_state = native.NativePaletteState() if use_native else PaletteState()
     compress_palette = (native.palette_compress if use_native
@@ -124,11 +132,20 @@ def emit_image(rgb: np.ndarray, accepts: list, t3: list,
                "maps": {key: np.zeros(swizzle.bitmap_size_bytes(*key, w, h)
                                       * 8, np.uint8)
                         for key in swizzle.TILE3D_PASS_ORDER}}
-    emit.emit_tile3d_streams(t3, w, h, streams)
+    compact = "bits_scan" in t3[0]
+    if compact:
+        emit.emit_tile3d_streams_compact(t3, w, h, streams)
+    else:
+        emit.emit_tile3d_streams(t3, w, h, streams)
     for res in t3:
         sx, sy = res["shift"]
         tw, th = 1 << sx, 1 << sy
-        acc = res["accept"].reshape(h // th, w // tw)
+        if compact:       # the accept grid from the scan-order bits
+            accept = np.zeros((h // th) * (w // tw), bool)
+            accept[emit._scan_perm(sx, sy, w, h)[1]] = res["bits_scan"]
+        else:
+            accept = res["accept"]
+        acc = accept.reshape(h // th, w // tw)
         claims4[: (h // th) * (th // 4), : (w // tw) * (tw // 4)] |= \
             np.repeat(np.repeat(acc, th // 4, 0), tw // 4, 1)
     parts.append(_tile3d_chunk_deferred(streams, cfg, w, h, zb))
@@ -161,8 +178,13 @@ def emit_image(rgb: np.ndarray, accepts: list, t3: list,
         parts.append(mk_1d)
 
     parts.append(struct.pack("<I", 0xDEADBEEF))
+
+    def assemble() -> bytes:
+        return b"".join(p if isinstance(p, bytes) else p() for p in parts)
+    if defer is not None:
+        return assemble
     zb.run()
-    return b"".join(p if isinstance(p, bytes) else p() for p in parts)
+    return assemble()
 
 
 def encode_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",

@@ -1,11 +1,15 @@
 """Host emission of the 3D LUT streams from device scoring results.
 
-A numpy copy of `yaik_tpu.encoder.device_pipeline.emit_tile3d_streams`,
-whose module imports jax: accepted tiles in swizzle-scan order append their
-bbox, type and unmasked window indices to the streams, exactly as the host
-pass `corr3d.run_pass` does.
+Numpy copies of `yaik_tpu.encoder.device_pipeline.emit_tile3d_streams` and
+`emit_tile3d_streams_compact` (with `_scan_perm`), whose module imports
+jax: accepted tiles in swizzle-scan order append their bbox, type and
+unmasked window indices to the streams, exactly as the host pass
+`corr3d.run_pass` does. The compact form reads the accepted tiles' packed
+rows, which the device gathered in scan order already.
 """
 from __future__ import annotations
+
+from functools import lru_cache
 
 import numpy as np
 
@@ -43,6 +47,54 @@ def emit_tile3d_streams(results: list[dict], w: int, h: int,
             order = slot_order(tw, th)
             idxo = res["idx"][gids][:, order]
             masko = res["mask"][gids][:, order].astype(bool)
+            bit_arr = ((tvals >> 14) & 3) + 3
+            for bit in (3, 4, 5, 6):
+                tb = bit_arr == bit
+                if tb.any():
+                    streams[bit] += idxo[tb][~masko[tb]].astype(
+                        np.uint8).tobytes()
+        packed = np.frombuffer(swizzle.pack_bitmap(bits), np.uint8)
+        m = streams["maps"][(sx, sy)]
+        m[:len(packed)] |= packed
+
+
+@lru_cache(maxsize=None)
+def _scan_perm(sx: int, sy: int, w: int, h: int):
+    """(sel0 slot ids, gids tile ids) of the pass's whole tiles in
+    swizzle-scan order (cached per shape; callers must not write them)."""
+    tw, th = 1 << sx, 1 << sy
+    tx, ty, valid = swizzle.tile_scan_coords(sx, sy, w, h)
+    inside = ((tx + 1) * tw <= w) & ((ty + 1) * th <= h)
+    sel0 = np.flatnonzero(valid & inside)
+    gids = (ty[sel0].astype(np.int64) * (w // tw) + tx[sel0]).astype(
+        np.int32)
+    return sel0, gids
+
+
+def emit_tile3d_streams_compact(per_pass: list[dict], w: int, h: int,
+                                streams: dict) -> None:
+    """`emit_tile3d_streams` from one image's compacted results: per pass
+    a dict of shift, bits_scan [Ts] bool (accepts in scan order), count
+    and rows [>= count, P+9] u8 (the accepted tiles' packed rows in scan
+    order: idx | mask << 6, accept, type lo, type hi, bbox)."""
+    for res in per_pass:
+        sx, sy = res["shift"]
+        tw, th = 1 << sx, 1 << sy
+        P = tw * th
+        sel0, _ = _scan_perm(sx, sy, w, h)
+        tx_all, _, _ = swizzle.tile_scan_coords(sx, sy, w, h)
+        bits = np.zeros(tx_all.shape[0], bool)
+        bits[sel0] = res["bits_scan"]
+        C = int(res["count"])
+        if C:
+            rows = res["rows"][:C]
+            streams["color"] += rows[:, P + 3:P + 9].tobytes()
+            tvals = (rows[:, P + 1].astype(np.int64)
+                     | (rows[:, P + 2].astype(np.int64) << 8))
+            streams["type"].extend(tvals.tolist())
+            im = rows[:, :P][:, slot_order(tw, th)]
+            idxo = im & 63
+            masko = (im >> 6).astype(bool)
             bit_arr = ((tvals >> 14) & 3) + 3
             for bit in (3, 4, 5, 6):
                 tb = bit_arr == bit

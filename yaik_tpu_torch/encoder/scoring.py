@@ -1,19 +1,26 @@
 """Device encode scoring, in PyTorch: the counterpart of
-`yaik_tpu.encoder.jax_scoring` for the dense single-image path.
+`yaik_tpu.encoder.jax_scoring`.
 
 - `gradient_pass` / `gradient_all`: the 6-variant bilinear accept test of
   every tile position (`gradient_pass_device` / `gradient_all_device`), the
-  7 passes in order with claims evolving between them;
-- `tile3d_operands` / `tile3d_pass`: one dense 3D LUT size pass
-  (`tile3d_pass_resident_b` with B = 1 and no scoring cap): tile
-  extraction, the claims mask, the per-tile bbox, the two normalization
-  chains, `kernels.score48_mode` (the pattern scores and their first-min
-  argmin in one kernel), `kernels.values48` and the claims update.
+  7 passes in order with claims evolving between them, over a batch of
+  images [B, 3, H, W] (the JAX package vmaps them) or one image [3, H, W]
+  (B = 1 of the same code); the launches do not depend on B;
+- `tile3d_operands_b` / `tile3d_pass_b`: one 3D LUT size pass over a batch
+  (`tile3d_pass_resident_b`): the images flattened into the tile axis
+  (B * T rows), tile extraction, the claims mask, the per-tile bbox, with
+  `cap_score` C only the first C tiles per image that hold an alive pixel
+  (B * C rows) taken on to the two normalization chains,
+  `kernels.score48_mode` (the pattern scores and their first-min argmin in
+  one kernel) and `kernels.values48`, one launch each for the batch, the
+  results scattered back to their tiles and the claims update;
+- `tile3d_operands` / `tile3d_pass`: the same pass of one image, dense.
 
 Everything is int32 and wraps where the JAX package's int32 arithmetic
 wraps (dead pixels below a tile's alive minimum overflow `k63 * magic`);
 the one float step, c = trunc((r / 2^20) * 63), divides by a power of two
-and is exact on every device. Claims [3, H, W] bool are updated in place.
+and is exact on every device. Claims [B, 3, H, W] (or [3, H, W]) bool are
+updated in place.
 """
 from __future__ import annotations
 
@@ -37,10 +44,12 @@ def round6p(v: torch.Tensor) -> torch.Tensor:
 
 
 def _claim(claims: torch.Tensor, accept: torch.Tensor, th: int, tw: int):
-    """OR the [nty, ntx] accept grid's pixels into claims, in place."""
-    nty, ntx = accept.shape
-    up = accept[:, None, :, None].expand(nty, th, ntx, tw)
-    claims[:, :nty * th, :ntx * tw] |= up.reshape(nty * th, ntx * tw)
+    """OR the [B, nty, ntx] accept grids' pixels into claims [B, 3, H, W],
+    in place."""
+    B, nty, ntx = accept.shape
+    up = accept[:, :, None, :, None].expand(B, nty, th, ntx, tw)
+    claims[:, :, :nty * th, :ntx * tw] |= up.reshape(
+        B, 1, nty * th, ntx * tw)
 
 
 def _weights(t: int, dev: torch.device) -> torch.Tensor:
@@ -51,21 +60,27 @@ def _weights(t: int, dev: torch.device) -> torch.Tensor:
 
 def gradient_pass(planes: torch.Tensor, claims: torch.Tensor, sx: int,
                   sy: int, reject_factor: int) -> torch.Tensor:
-    """planes [3, H, W] i32, claims [3, H, W] bool -> accept [nty, ntx]
-    bool of the (1<<sx) x (1<<sy) pass; claims take the accepted tiles."""
+    """planes [B, 3, H, W] i32, claims [B, 3, H, W] bool -> accept
+    [B, nty, ntx] bool of the (1<<sx) x (1<<sy) pass; claims take the
+    accepted tiles. One image [3, H, W] gives [nty, ntx]."""
+    if planes.ndim == 3:
+        return gradient_pass(planes[None], claims[None], sx, sy,
+                             reject_factor)[0]
     tw, th = 1 << sx, 1 << sy
-    _, h, w = planes.shape
+    B, _, h, w = planes.shape
     ntx, nty = w // tw, h // th
     dev = planes.device
+    # the corner grid clamps at each image's last row and column (a band's
+    # halo row is its last row: jax_scoring.gradient_pass_device)
     xs = torch.arange(0, (ntx + 1) * tw, tw, device=dev).clamp(max=w - 1)
     ys = torch.arange(0, (nty + 1) * th, th, device=dev).clamp(max=h - 1)
-    corners = planes[:, ys[:, None], xs[None, :]]        # [3, nty+1, ntx+1]
-    c00, c01 = corners[:, :nty, :ntx], corners[:, :nty, 1:]
-    c10, c11 = corners[:, 1:, :ntx], corners[:, 1:, 1:]
-    pix = planes[:, :nty * th, :ntx * tw].reshape(3, nty, th, ntx, tw)
-    pix = pix.permute(0, 1, 3, 2, 4)                  # [3, nty, ntx, th, tw]
-    lf = _weights(tw, dev).reshape(1, 1, 1, 1, tw)
-    tf = _weights(th, dev).reshape(1, 1, 1, th, 1)
+    corners = planes[:, :, ys[:, None], xs[None, :]]   # [B, 3, nty+1, ntx+1]
+    c00, c01 = corners[:, :, :nty, :ntx], corners[:, :, :nty, 1:]
+    c10, c11 = corners[:, :, 1:, :ntx], corners[:, :, 1:, 1:]
+    pix = planes[:, :, :nty * th, :ntx * tw].reshape(B, 3, nty, th, ntx, tw)
+    pix = pix.permute(0, 1, 2, 4, 3, 5)         # [B, 3, nty, ntx, th, tw]
+    lf = _weights(tw, dev).reshape(1, 1, 1, 1, 1, tw)
+    tf = _weights(th, dev).reshape(1, 1, 1, 1, th, 1)
 
     def blends(a, b, c, d):
         # int32 suffices: blends peak at 255*1024*1024 + 2^19 < 2^31
@@ -74,12 +89,12 @@ def gradient_pass(planes: torch.Tensor, claims: torch.Tensor, sx: int,
         num = top * tf + bot * (1024 - tf)
         return (num + ROUNDING) >> 20, num >> 20
 
-    ok = torch.zeros((nty, ntx), dtype=torch.bool, device=dev)
+    ok = torch.zeros((B, nty, ntx), dtype=torch.bool, device=dev)
     for rnd in (lambda v: v, round6, round6p):
         for bl in blends(rnd(c00), rnd(c01), rnd(c10), rnd(c11)):
-            ok |= ((pix - bl).abs() <= reject_factor).all(-1).all(-1).all(0)
-    origins = claims[:, ::th, ::tw][:, :nty, :ntx]
-    accept = ok & ~origins.any(0)
+            ok |= ((pix - bl).abs() <= reject_factor).all(-1).all(-1).all(1)
+    origins = claims[:, :, ::th, ::tw][:, :, :nty, :ntx]
+    accept = ok & ~origins.any(1)
     _claim(claims, accept, th, tw)
     return accept
 
@@ -104,22 +119,35 @@ class Tile3DOperands(NamedTuple):
     pre: torch.Tensor       # [T] bool: an alive pixel, <= 1 flat channel
 
 
-def tile3d_operands(planes: torch.Tensor, claims: torch.Tensor, sx: int,
-                    sy: int) -> Tile3DOperands:
-    """Tiles, mask, bbox and both normalization chains of one pass."""
-    tw, th = 1 << sx, 1 << sy
-    _, h, w = planes.shape
-    ntx, nty = w // tw, h // th
-    T, P = nty * ntx, th * tw
-    tiles = planes[:, :nty * th, :ntx * tw].reshape(3, nty, th, ntx, tw)
-    tiles = tiles.permute(1, 3, 2, 4, 0).reshape(T, P, 3)
-    mask = claims.all(0)[:nty * th, :ntx * tw].reshape(nty, th, ntx, tw)
-    mask = mask.permute(0, 2, 1, 3).reshape(T, P)
-    alive = ~mask
-    mn = torch.where(alive[..., None], tiles, 999).amin(1)
-    mx = torch.where(alive[..., None], tiles, -999).amax(1)
-    d = mx - mn
-    pre = alive.any(1) & ((d == 0).sum(1) <= 1)
+class Tile3DBatchOperands(NamedTuple):
+    """One 3D pass's operands over a batch: `ops` holds the scored rows
+    (every tile of the batch, B * T rows, or with a scoring cap C the
+    first C tiles per image with an alive pixel, B * C rows); mask, mn and
+    mx are every tile's, [B * T, ...]."""
+    ops: Tile3DOperands
+    mask: torch.Tensor
+    mn: torch.Tensor
+    mx: torch.Tensor
+    src: torch.Tensor | None     # [B * C] i64: the tile row of each scored
+    valid: torch.Tensor | None   # [B * C] bool: the row holds such a tile
+    alive_cnt: torch.Tensor      # [B] i32: tiles with an alive pixel (0
+    #                              when dense, as in the JAX package)
+
+
+class Tile3DPass(NamedTuple):
+    """One 3D pass's results over a batch of B images of T tiles."""
+    accept: torch.Tensor      # [B, T] bool
+    tile_type: torch.Tensor   # [B, T] i32
+    idx: torch.Tensor         # [B, T, P] i32
+    mask: torch.Tensor        # [B, T, P] bool
+    mn: torch.Tensor          # [B, T, 3] i32
+    mx: torch.Tensor          # [B, T, 3] i32
+    alive_cnt: torch.Tensor   # [B] i32
+
+
+def _normalize(tiles: torch.Tensor, mn: torch.Tensor, d: torch.Tensor):
+    """(c, a_c, b_c) of tiles [N, P, 3] with bbox minimum mn and extent d
+    [N, 3]: the scoring coordinates and both computeValues chains."""
     k = tiles - mn[:, None]
     dpos = (d > 0)[:, None]
     d1 = d.clamp(min=1)[:, None]
@@ -132,15 +160,73 @@ def tile3d_operands(planes: torch.Tensor, claims: torch.Tensor, sx: int,
     q = torch.where(dpos, q0, k63)
     rem = torch.where(dpos, k63 - q0 * d1, 0)
     b_c = 63 - q - (rem != 0).to(torch.int32)
-    return Tile3DOperands(tiles.contiguous(), mask, c, q, b_c, mn, mx, pre)
+    return c, q, b_c
 
 
-def tile3d_pass(planes: torch.Tensor, claims: torch.Tensor,
-                tables: BankTables, sx: int, sy: int, plain: bool = False):
-    """One dense 3D LUT pass. Returns (accept [T] bool, tile_type [T] i32,
-    idx [T, P] i32, Tile3DOperands); claims take the accepted tiles.
-    `plain` scores with the kernels' plain versions on any device."""
-    ops = tile3d_operands(planes, claims, sx, sy)
+def _select_alive(live: torch.Tensor, cap: int):
+    """The first `cap` tiles per image of live [B, T] (cumsum, then
+    searchsorted, as jax_scoring): (src [B * cap] flat tile rows, clamped
+    at each image's last tile; valid [B * cap]; alive_cnt [B] i32)."""
+    B, T = live.shape
+    dev = live.device
+    csum = live.to(torch.int32).cumsum(1, dtype=torch.int32)
+    alive_cnt = (csum[:, -1] if T else
+                 torch.zeros(B, dtype=torch.int32, device=dev))
+    targets = torch.arange(1, cap + 1, dtype=torch.int32,
+                           device=dev).expand(B, cap).contiguous()
+    pos = torch.searchsorted(csum, targets)
+    src = (torch.arange(B, device=dev)[:, None] * T
+           + pos.clamp(max=max(T - 1, 0))).reshape(-1)
+    valid = (targets <= alive_cnt[:, None]).reshape(-1)
+    return src, valid, alive_cnt
+
+
+def tile3d_operands_b(planes: torch.Tensor, claims: torch.Tensor, sx: int,
+                      sy: int, cap_score: int | None = None
+                      ) -> Tile3DBatchOperands:
+    """Tiles, mask and bbox of one pass over planes / claims [B, 3, H, W],
+    and both normalization chains of the rows to score: every tile, or
+    with `cap_score` the first cap_score tiles per image that hold an
+    alive pixel (tiles past an image's count are rows masked dead)."""
+    tw, th = 1 << sx, 1 << sy
+    B, _, h, w = planes.shape
+    ntx, nty = w // tw, h // th
+    T, P = nty * ntx, th * tw
+    tiles = planes[:, :, :nty * th, :ntx * tw].reshape(B, 3, nty, th, ntx, tw)
+    tiles = tiles.permute(0, 2, 4, 3, 5, 1).reshape(B * T, P, 3)
+    mask = claims.all(1)[:, :nty * th, :ntx * tw].reshape(B, nty, th, ntx, tw)
+    mask = mask.permute(0, 1, 3, 2, 4).reshape(B * T, P)
+    alive = ~mask
+    mn = torch.where(alive[..., None], tiles, 999).amin(1)
+    mx = torch.where(alive[..., None], tiles, -999).amax(1)
+    d = mx - mn
+    pre = alive.any(1) & ((d == 0).sum(1) <= 1)
+    if cap_score is None:
+        src = valid = None
+        alive_cnt = torch.zeros(B, dtype=torch.int32, device=planes.device)
+        s_tiles, s_alive, s_mn, s_mx, s_pre = tiles, alive, mn, mx, pre
+    else:
+        src, valid, alive_cnt = _select_alive(alive.any(1).reshape(B, T),
+                                              cap_score)
+        s_tiles, s_mn, s_mx = tiles[src], mn[src], mx[src]
+        s_alive = alive[src] & valid[:, None]
+        s_pre = pre[src] & valid
+    c, a_c, b_c = _normalize(s_tiles, s_mn, s_mx - s_mn)
+    ops = Tile3DOperands(s_tiles.contiguous(), ~s_alive, c, a_c, b_c, s_mn,
+                         s_mx, s_pre)
+    return Tile3DBatchOperands(ops, mask, mn, mx, src, valid, alive_cnt)
+
+
+def tile3d_operands(planes: torch.Tensor, claims: torch.Tensor, sx: int,
+                    sy: int) -> Tile3DOperands:
+    """Tiles, mask, bbox and both normalization chains of one image's
+    pass (planes / claims [3, H, W]), every tile."""
+    return tile3d_operands_b(planes[None], claims[None], sx, sy).ops
+
+
+def _score(ops: Tile3DOperands, tables: BankTables, plain: bool):
+    """(accept, tile_type, idx) of the operands' rows: score48_mode, then
+    values48, each one launch (their plain versions with `plain`)."""
     alive = ~ops.mask
     score = kernels.score48_mode_plain if plain else kernels.score48_mode
     values = kernels.values48_plain if plain else kernels.values48
@@ -148,7 +234,50 @@ def tile3d_pass(planes: torch.Tensor, claims: torch.Tensor,
     acc, tile_type, idx = values(ops.tiles, alive, ops.a_c, ops.b_c, mode48,
                                  ops.mn, ops.mx - ops.mn, tables.pts,
                                  tables.factors)
-    accept = acc & ops.pre
+    return acc & ops.pre, tile_type, idx
+
+
+def _scatter(rows: torch.Tensor, src: torch.Tensor, valid: torch.Tensor,
+             n: int) -> torch.Tensor:
+    """[n, ...] zeros with the valid rows at their tiles; the others go to
+    a spare row n that is dropped (no host sync, as `mode="drop"`)."""
+    out = rows.new_zeros((n + 1,) + rows.shape[1:])
+    out[torch.where(valid, src, n)] = rows
+    return out[:n]
+
+
+def tile3d_pass_b(planes: torch.Tensor, claims: torch.Tensor,
+                  tables: BankTables, sx: int, sy: int,
+                  cap_score: int | None = None) -> Tile3DPass:
+    """One 3D pass over planes / claims [B, 3, H, W] (see
+    tile3d_operands_b); claims take the accepted tiles. With a cap, a
+    tile left unscored has accept, type and idx 0, and alive_cnt above
+    the cap tells the caller so."""
+    B, _, h, w = planes.shape
+    tw, th = 1 << sx, 1 << sy
+    nty, ntx = h // th, w // tw
+    T, P = nty * ntx, th * tw
+    bo = tile3d_operands_b(planes, claims, sx, sy, cap_score)
+    accept, tile_type, idx = _score(bo.ops, tables, plain=False)
+    if bo.src is not None:
+        accept, tile_type, idx = (_scatter(x, bo.src, bo.valid, B * T)
+                                  for x in (accept, tile_type, idx))
+    _claim(claims, accept.reshape(B, nty, ntx), th, tw)
+    return Tile3DPass(accept.reshape(B, T), tile_type.reshape(B, T),
+                      idx.reshape(B, T, P), bo.mask.reshape(B, T, P),
+                      bo.mn.reshape(B, T, 3), bo.mx.reshape(B, T, 3),
+                      bo.alive_cnt)
+
+
+def tile3d_pass(planes: torch.Tensor, claims: torch.Tensor,
+                tables: BankTables, sx: int, sy: int, plain: bool = False):
+    """One dense 3D LUT pass of one image (planes / claims [3, H, W]).
+    Returns (accept [T] bool, tile_type [T] i32, idx [T, P] i32,
+    Tile3DOperands); claims take the accepted tiles. `plain` scores with
+    the kernels' plain versions on any device."""
+    ops = tile3d_operands(planes, claims, sx, sy)
+    accept, tile_type, idx = _score(ops, tables, plain)
     _, h, w = planes.shape
-    _claim(claims, accept.reshape(h >> sy, w >> sx), 1 << sy, 1 << sx)
+    _claim(claims[None], accept.reshape(1, h >> sy, w >> sx), 1 << sy,
+           1 << sx)
     return accept, tile_type, idx, ops
