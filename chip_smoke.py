@@ -32,7 +32,10 @@ counting each kernel's launches against what the operands call for:
   decode of `bench_4k`) through `yaik_tpu_torch.encode_image(...,
   device="cuda")`: bytes held against the plain-path twin in this process
   (`api.score_image(..., plain=True)` + `api.emit_image`), decoded pixels
-  against their digests (the 4K stream against the port's CPU decode).
+  against their digests; the 4K stream's pixels against the port's CPU
+  decode (its kernel path equals the plain path pass by pass: each 4K
+  pass's kernels are held to their plain versions on the kernel path's own
+  operands).
 - batch, spatial and corpus decode through `yaik_tpu_torch.parallel.batch`:
   `decode_batch` on eight batches (img512 and img512b x 8, split and
   fused; bench_rgba512 x 4; the five alpha cases, alpha left to the host;
@@ -53,6 +56,27 @@ counting each kernel's launches against what the operands call for:
   default caps, which grow; the 3840x2160 image, a batch of one); and
   `encode_image_banded` of the 4K image in bands of 544 rows, every
   stream equal to `encode_image`'s.
+- RGBA encode and the passes the reference leaves disabled through
+  `yaik_tpu_torch.encode_image(..., device="cuda")`: the RGBA decode of
+  bench_rgba512, sprite256 and a 2048x2048 sprite sheet tiled from it; each
+  of UCOL, SMAP, 2D (tests/fixtures/Bank2D), PLNT and plane gradients alone
+  on img512 and corr2d128, and all of them together (on img512 all but
+  plane gradients, which raise the reference's RuntimeError there, on the
+  card and on the CPU path alike). Each stream equals the CPU path's bytes
+  (`score_image(device="cpu")` + `emit_image`, which is what
+  `encode_image(device="cpu")` runs, the scoring on a thread beside phases
+  2-3d; the 2048² sheet's twin scores with the plain versions on the card,
+  as its CPU scoring would outlast the run) and decodes on the card to the
+  CPU-path decode's pixels, the alpha channel back as the source's where
+  the alpha chunk is 8-bit; `encode_corpus` of a mixed RGB/RGBA corpus equals
+  `encode_image`; every PLNT plane (`pack.plnt_args` +
+  `engine.decode_plnt_plane`) on the card equals its CPU twin.
+- LUT-bank mining through `yaik_tpu_torch.encoder.mining`: `mine_bank` of
+  img512 and img512b and `mine_bank2d` of corr2d128 and img128 on the card,
+  one `covers` and one `covers2d` launch each, files equal to the
+  `device="cpu"` run's. `covers` and `covers2d` are held against their
+  plain versions at corpus scale (k = 256 candidates, n = 50,000 seeded
+  clouds) and timed there.
 The decode kernels are held against their plain versions on a batch too
 (B = 4: img512, img512b and the RGB of bench_rgba512 and bench_2d512, and
 random operands; each image of a batch against its own unbatched call,
@@ -85,7 +109,8 @@ CUDA kernels (table packing, decision, idx).
 The last lines are the card as nvidia-smi names it, one JSON line with the
 kernels (time, plain time, the card's least time for the same work and what
 bounds it; each kernel's launches summed over the main-path runs, for the
-encode kernels the `encode_image` run and the batch encode runs), and
+encode kernels the `encode_image` runs and the batch encode runs, for
+`covers` and `covers2d` the mining run), and
 `{"ok": true, "device": {...}}`. Any failure raises, and the
 script exits non-zero; so does a run without a GPU, where it prints no
 result.
@@ -142,7 +167,17 @@ KERNELS = {
                      "yaik_tpu/ops/pallas_kernels.py:409"),
     "values48": ("yaik_tpu_torch/ops/csrc/values48.cu",
                  "yaik_tpu/ops/pallas_kernels.py:906"),
+    # the LUT-bank miner's coverage matrices: XLA functions on the TPU (no
+    # Pallas kernel), a hand kernel here
+    "covers": ("yaik_tpu_torch/ops/csrc/covers.cu",
+               "yaik_tpu/encoder/mining.py:79"),
+    "covers2d": ("yaik_tpu_torch/ops/csrc/covers.cu",
+                 "yaik_tpu/encoder/mining.py:247"),
 }
+MINE_KERNELS = ("covers", "covers2d")
+# the corpus scale of the miner's coverage matrix (mining.py's docstring):
+# k candidate clouds against n captured tiles
+K_MINE, N_MINE = 256, 50_000
 # the card's peaks (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, float32
 # outside the tensor cores, and int32 (64 lanes per SM per clock, half the
 # float32 rate)
@@ -155,15 +190,18 @@ def run(cmd) -> str:
                           check=True).stdout.strip()
 
 
-def cuda_ms(fn, iters: int, queued: bool = True) -> float:
+def cuda_ms(fn, iters: int, queued: bool = True, warm: bool = True
+            ) -> float:
     """Mean device milliseconds per call over `iters` back-to-back calls,
-    by CUDA events, after warm-up. With `queued`, the stream first sleeps
+    by CUDA events, after warm-up (`warm`; a plain version that takes
+    seconds a call is timed cold). With `queued`, the stream first sleeps
     on the card for twice the host time the calls take to enqueue, so the
     events time the device work alone (the calls must then launch fewer
     than ~1000 kernels in all, or the host blocks on the full launch
     queue); without it they also time the host's dispatch where the card
     waits for it."""
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -332,6 +370,27 @@ def main() -> int:
     fam.update({n: (FIX / f"{n}.rgba.yaik").read_bytes() for n in RGBA})
     fplans = {n: planner.build_plan(s, bank.expanded, bank.expanded2d)
               for n, s in fam.items()}
+    # phase 3e's sources (bench_rgba512's: its CPU decode, which phase 3e
+    # holds equal to the card's), and the CPU path's scoring of all but the
+    # 2048² sheet on a thread beside phases 2-3d: it takes tens of seconds
+    # a 512² image on the card's host, and torch's CPU ops release the GIL
+    from concurrent.futures import ThreadPoolExecutor
+    sprite = np.asarray(Image.open(FIX / "sprite256.png"))
+    enc_src = {
+        "bench_rgba512": np.ascontiguousarray(yaik_tpu_torch.decode_image(
+            fam["bench_rgba512"], bank, device="cpu")),
+        "sprite256": sprite,
+        "sheet2048": np.ascontiguousarray(np.tile(sprite, (8, 8, 1))),
+        "img512": images["img512"],
+        "corr2d128": np.asarray(Image.open(FIX / "corr2d128.png"))}
+
+    def cpu_scoring(rgb: np.ndarray) -> tuple:
+        t = time.perf_counter()
+        return (api.score_image(rgb, bank3d, "cpu"),
+                time.perf_counter() - t)
+    cpu_pool = ThreadPoolExecutor(1)
+    cpu_jobs = {n: cpu_pool.submit(cpu_scoring, rgb)
+                for n, rgb in enc_src.items() if n != "sheet2048"}
 
     lap("2")
     # -- phase 2: each kernel against its plain version, exactly -----------
@@ -668,6 +727,28 @@ def main() -> int:
     if got[0].any():
         raise AssertionError("values48 accepted a tile with all-skip factors")
 
+    lap("2e")
+    # -- phase 2e: the miner's coverage kernels against their plain versions
+    # at corpus scale, on seeded clouds: 3D tiles near the candidates (so
+    # some are covered), 2D point sets of 1..64 points -------------------
+    from yaik_tpu_torch.encoder import mining
+    crng = np.random.default_rng(8)
+    cands = crng.integers(0, 64, (K_MINE, 64, 3)).astype(np.uint8)
+    near = cands[crng.integers(0, K_MINE, N_MINE)].astype(np.int32)
+    tiles = np.clip(near + crng.integers(-6, 7, (N_MINE, 64, 3)), 0, 63)
+    sets = [np.unique(crng.integers(0, 64, (int(m), 2)), axis=0)[:64]
+            for m in crng.integers(1, 65, N_MINE)]
+    cover_args = {
+        "covers": tuple(torch.from_numpy(a).to(dev)
+                        for a in (cands, tiles.astype(np.uint8))),
+        "covers2d": tuple(torch.from_numpy(a).to(dev) for a in (
+            *mining._padded(sets[:K_MINE]), *mining._padded(sets)))}
+    for name, a in cover_args.items():
+        got = check(name, f"k = {K_MINE}, n = {N_MINE} seeded clouds", *a)
+        print(f"  {name}: {int(got.sum())} of {got.numel()} (candidate, "
+              "tile) pairs covered")
+    del cands, near, tiles, sets
+
     lap("3")
     # -- phase 3: the standard decode, split and fused, through the user's
     # entry point; each run starts its kernels' counts at 0 --------------
@@ -911,18 +992,10 @@ def main() -> int:
               "host engine's stream decoded")
         if not ok:
             raise AssertionError(f"encode of {n} is wrong")
+    # the 4K image's kernel path equals its plain path pass by pass: phase
+    # 2b held each of the six passes' kernels to their plain versions on
+    # the kernel path's own operands and claims
     img4k, stream4k = images["bench_4k"], encoded["bench_4k"]
-    got = api.score_image(img4k, bank3d, "cuda")
-    plain = api.score_image(img4k, bank3d, "cuda", plain=True)
-    same = all(np.array_equal(a, b) for a, b in zip(got[0], plain[0])) and \
-        all(all(np.array_equal(a[k], b[k]) for k in a)
-            for a, b in zip(got[1], plain[1]))
-    print(f"encode bench_4k {img4k.shape[1]}x{img4k.shape[0]}: all six "
-          f"passes' outputs "
-          f"{'equal' if same else 'DIFFER'} between the kernel and plain "
-          f"paths; {sum(int(r['accept'].sum()) for r in got[1])} 3D tiles")
-    if not same:
-        raise AssertionError("4K kernel-path scoring differs from plain")
     back = yaik_tpu_torch.decode_image(stream4k, bank, device="cuda")
     ok = np.array_equal(back, yaik_tpu_torch.decode_image(stream4k, bank,
                                                           device="cpu"))
@@ -1068,6 +1141,193 @@ def main() -> int:
           "encode_image's stream")
     if banded != stream4k:
         raise AssertionError("encode_image_banded differs from encode_image")
+
+    lap("3e")
+    # -- phase 3e: RGBA encode and the passes the reference leaves disabled,
+    # through encode_image on the card (counts from 0 before, read after);
+    # then each stream against the CPU path's bytes, and decoded on the card
+    # against the CPU-path decode ----------------------------------------
+    from yaik_tpu_torch.decoder.chunks import iter_chunks
+    from yaik_tpu_torch.encoder import bank2d as bank2dmod
+    from yaik_tpu_torch.format.headers import AlphaHeader, PlaneTile
+    from torch_streams import rgba_case
+    bank2d = bank2dmod.load_bank2d(str(FIX / "Bank2D"))
+    if not np.array_equal(enc_src["bench_rgba512"],
+                          fouts["bench_rgba512"]):
+        raise AssertionError("bench_rgba512's CPU decode differs from the "
+                             "card's")
+    passes = ("enable_single_color", "enable_smooth_map", "enable_2d",
+              "enable_plnt", "enable_plane_gradients")
+    jobs = [(n, n, {}) for n in ("bench_rgba512", "sprite256", "sheet2048")]
+    for n in ("img512", "corr2d128"):
+        jobs += [(f"{n} {p[7:]}", n, {p: True}) for p in passes]
+    jobs.append(("corr2d128 all passes", "corr2d128",
+                 dict.fromkeys(passes, True)))
+    # plane gradients on img512 raise the reference's RuntimeError (its
+    # palette codec fails on the 2-byte stream of the RG pass, as in the JAX
+    # package), so every pass together there is every other pass
+    jobs.append(("img512 all passes but plane gradients", "img512",
+                 dict.fromkeys(passes[:4], True)))
+
+    def attempt(fn):
+        try:
+            return fn()
+        except RuntimeError as e:        # compared like a stream below
+            return e
+
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
+    on_card, walls = {}, {}
+    for label, n, kw in jobs:
+        t = time.perf_counter()
+        on_card[label] = attempt(lambda: yaik_tpu_torch.encode_image(
+            enc_src[n], bank3d, device="cuda",
+            config=api.EncoderConfig(**kw), bank2d=bank2d))
+        walls[label] = time.perf_counter() - t
+    pass_launches = {name: getattr(kernels, name).launches
+                     for name in ENCODE_KERNELS}
+    print(f"launches in the {len(jobs)} RGBA and disabled-pass encodes "
+          f"({sum(walls.values()):.2f} s): {pass_launches}; encode_image "
+          "wall on the card: " + ", ".join(f"{k} {v:.3f} s"
+                                           for k, v in walls.items()))
+    if pass_launches != {"score48": 0, "score48_mode": 6 * len(jobs),
+                         "values48": 6 * len(jobs)}:
+        raise AssertionError("an RGBA or disabled-pass encode does not launch "
+                             "score48_mode and values48 once per 3D pass")
+    for name, k in pass_launches.items():
+        launches[name] += k
+
+    # the CPU path: encode_image(device="cpu") is score_image(device="cpu")
+    # then emit_image; the scoring reads no pass switch, so it runs once per
+    # image (phase 1's thread). The 2048² sheet has 16 times img512's
+    # pixels, too many for the CPU in this run: its twin scores with the
+    # plain versions on the card, the CPU path's torch ops and arithmetic.
+    t = time.perf_counter()
+    cpu_scores, cpu_s = {}, {}
+    for n, job in cpu_jobs.items():
+        cpu_scores[n], cpu_s[n] = job.result()
+    cpu_pool.shutdown()
+    print("score_image(device=\"cpu\") on a thread beside phases 2-3d: "
+          + ", ".join(f"{n} {s:.2f} s" for n, s in cpu_s.items())
+          + f"; waited {time.perf_counter() - t:.2f} s for it here")
+    cpu_scores["sheet2048"] = api.score_image(enc_src["sheet2048"], bank3d,
+                                              "cuda", plain=True)
+    for label, n, kw in jobs:
+        t = time.perf_counter()
+        twin = attempt(lambda: api.emit_image(
+            enc_src[n], *cpu_scores[n], api.EncoderConfig(**kw),
+            bank2d=bank2d))
+        got = on_card[label]
+        if isinstance(got, Exception) or isinstance(twin, Exception):
+            same = str(got) == str(twin) and type(got) is type(twin)
+            print(f"encode {label}: raises {type(got).__name__}({got}) on the "
+                  f"card, {'and' if same else 'BUT NOT'} on the CPU path")
+            if not same or n != "img512" or "gradients" not in label:
+                raise AssertionError(f"encode {label} raised")
+            continue
+        px = yaik_tpu_torch.decode_image(got, bank, device="cuda")
+        same_px = np.array_equal(
+            px, yaik_tpu_torch.decode_image(got, bank, device="cpu"))
+        tags = list(dict.fromkeys(tag.decode()
+                                  for tag, _, _ in iter_chunks(got)))
+        alpha8 = [AlphaHeader.unpack(body).parameters & 7
+                  for tag, _, body in iter_chunks(got)
+                  if tag == b"ALPM"] == [AlphaHeader.IS_8_BIT_FULL]
+        alpha_ok = not alpha8 or np.array_equal(px[..., 3],
+                                                enc_src[n][..., 3])
+        where = " (plain versions on the card)" if n == "sheet2048" else ""
+        print(f"encode {label} {'x'.join(map(str, enc_src[n].shape))}: "
+              f"{len(got)} bytes, "
+              f"{'equal to' if got == twin else 'DIFFERS from'} the CPU "
+              f"path's{where}; decoded on the card "
+              f"{'equal to' if same_px else 'DIFFERS from'} the CPU-path "
+              f"decode; chunks {' '.join(tags)}"
+              f"{'; 8-bit alpha back as the source' if alpha8 else ''} "
+              f"({time.perf_counter() - t:.2f} s)")
+        if not (got == twin and same_px and alpha_ok):
+            raise AssertionError(f"encode {label} is wrong")
+
+    # a mixed corpus: RGB and RGBA of one size share no batch (shape
+    # groups), every stream equal to encode_image's on the card
+    mixed = [enc_src["bench_rgba512"], images["img512"], sprite,
+             *(rgba_case(c) for c in ("8bit", "sparse", "1bit")),
+             images["img64"], enc_src["bench_rgba512"][::-1].copy()]
+    want = [yaik_tpu_torch.encode_image(im, bank3d, device="cuda")
+            for im in mixed]
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
+    got = ebatch.encode_corpus(mixed, bank3d, batch_size=4, device="cuda")
+    corpus_launches = {name: getattr(kernels, name).launches
+                       for name in ENCODE_KERNELS}
+    print(f"encode_corpus of {len(mixed)} RGB and RGBA images (512², 256², "
+          f"64²): launches {corpus_launches}; each stream "
+          f"{'equal to' if got == want else 'DIFFERS from'} encode_image's")
+    if got != want or corpus_launches["score48_mode"] < 6 * 4:
+        raise AssertionError("the mixed encode_corpus is wrong")
+    for name, k in corpus_launches.items():
+        launches[name] += k
+
+    # the PLNT plane on the card against its CPU twin: every PLNT chunk of
+    # the committed PLNT streams and of img512's stream with PLNT
+    n_plnt = 0
+    plnt_streams = {n: (FIX / f"{n}.yaik").read_bytes()
+                    for n in ("img64.plnt", "corr2d128.plnt")}
+    plnt_streams["img512 plnt"] = on_card["img512 plnt"]
+    for label, stream in plnt_streams.items():
+        for tag, _, body in iter_chunks(stream):
+            if tag != b"PLNT":
+                continue
+            hdr = PlaneTile.unpack(body)
+            luts, codes, vmask, nty, ntx = pack.plnt_args(
+                hdr, body[PlaneTile.size():])
+            planes2 = [engine.decode_plnt_plane(
+                *(torch.from_numpy(a).to(d) for a in (luts, codes, vmask)),
+                nty, ntx).cpu() for d in (dev, "cpu")]
+            if not torch.equal(*planes2):
+                raise AssertionError(f"PLNT plane of {label} differs")
+            n_plnt += 1
+    print(f"decode_plnt_plane: {n_plnt} PLNT planes on the card equal to "
+          "their CPU twins")
+
+    lap("3f")
+    # -- phase 3f: LUT-bank mining through the user's entry points, the
+    # coverage matrices on the card (counts from 0 before, read after);
+    # the files against the CPU run's ------------------------------------
+    import shutil
+    mine_dir = ROOT / "build" / "chip_smoke_mining"
+    shutil.rmtree(mine_dir, ignore_errors=True)
+    mine3 = [images["img512"], base512["img512b"]]
+    mine2 = [enc_src["corr2d128"], images["img128"]]
+    for name in MINE_KERNELS:
+        getattr(kernels, name).launches = 0
+    t = time.perf_counter()
+    res = {"cuda": (mining.mine_bank(mine3, mine_dir / "cuda", device="cuda"),
+                    mining.mine_bank2d(mine2, mine_dir / "cuda2d",
+                                       device="cuda"))}
+    mine_s = time.perf_counter() - t
+    launches.update({name: getattr(kernels, name).launches
+                     for name in MINE_KERNELS})
+    print(f"launches in mine_bank (img512, img512b) and mine_bank2d "
+          f"(corr2d128, img128) on the card ({mine_s:.2f} s): "
+          f"{ {n: launches[n] for n in MINE_KERNELS} }")
+    if any(launches[n] != 1 for n in MINE_KERNELS):
+        raise AssertionError("mining does not launch covers and covers2d "
+                             "once per evaluation")
+    t = time.perf_counter()
+    res["cpu"] = (mining.mine_bank(mine3, mine_dir / "cpu", device="cpu"),
+                  mining.mine_bank2d(mine2, mine_dir / "cpu2d", device="cpu"))
+
+    def files(d):
+        return {f.name: f.read_bytes() for f in sorted(d.iterdir())}
+    same = res["cuda"] == res["cpu"] and all(
+        files(mine_dir / f"cuda{s}") == files(mine_dir / f"cpu{s}")
+        for s in ("", "2d"))
+    print(f"mining: (tables, clouds) {res['cuda']}, files "
+          f"{'equal to' if same else 'DIFFER from'} the CPU run's "
+          f"({time.perf_counter() - t:.2f} s on the CPU)")
+    if not same:
+        raise AssertionError("mining on the card differs from the CPU run")
+    shutil.rmtree(mine_dir, ignore_errors=True)
 
     lap("4")
     # -- phase 4: timing ---------------------------------------------------
@@ -1398,10 +1658,12 @@ def main() -> int:
         for name, fn, plain in timed:
             # the plain versions (values48's ~5 s a call) on the 4x4 pass only
             row = (2, 2) == (sx, sy)
-            p1 = cuda_ms(plain, 1, queued=False) if row else float("nan")
+            p1 = (cuda_ms(plain, 1, queued=False, warm=False) if row
+                  else float("nan"))
             k1 = cuda_ms(fn, 20)
             k2 = cuda_ms(fn, 20)
-            p2 = cuda_ms(plain, 1, queued=False) if row else float("nan")
+            p2 = (cuda_ms(plain, 1, queued=False, warm=False) if row
+                  else float("nan"))
             extra = (f"; every tensor in full {full[0]:.4f} ms ({full[1]}), "
                      f"every pixel x E x 120 points {old[0]:.4f} ms "
                      f"({old[1]})" if name == "values48" else "")
@@ -1556,6 +1818,57 @@ def main() -> int:
     finally:
         (ebatch._dispatch_batch, ebatch._emit_from_unpacked,
          ebatch._InFlight.wait) = orig
+
+    # the RGBA sprite sheet's encode_image: device scoring of its RGB planes
+    # (queued), the host's alpha chunks, emission and zstd, and the wall
+    sheet = enc_src["sheet2048"]
+    sheet_planes = planes_of(sheet[..., :3], dev)
+
+    def score_sheet():
+        claims = torch.zeros(sheet_planes.shape, dtype=torch.bool,
+                             device=dev)
+        scoring.gradient_all(sheet_planes, claims, 3)
+        pipeline.tile3d_all(sheet_planes, claims, tabs)
+    for _ in range(2):
+        ms = cuda_ms(score_sheet, 1)
+        accepts, t3 = api.score_image(sheet, bank3d, "cuda")
+        t = time.perf_counter()
+        api.emit_image(sheet, accepts, t3)
+        emit_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        yaik_tpu_torch.encode_image(sheet, bank3d, device="cuda")
+        wall_ms = (time.perf_counter() - t) * 1e3
+        print(f"time encode sheet2048 2048x2048 RGBA: scoring device "
+              f"{ms:.3f} ms, host alpha + emission + zstd {emit_ms:.2f} ms, "
+              f"encode_image wall {wall_ms:.2f} ms (host "
+              f"{emit_ms / wall_ms:.1%} of it) [{card}]")
+    del sheet_planes
+
+    # the coverage kernels at corpus scale (phase 2e's operands), with the
+    # bound of the distances the data needs: 3D every pixel against every
+    # point, 9 int32 operations each (3 sub, 3 mul, 2 add, 1 min); 2D the
+    # real points of each candidate against the counted pixels of each
+    # tile, 6 each (2 sub, 2 mul, 1 add, 1 min)
+    for name, a in cover_args.items():
+        fn = getattr(kernels, name)
+        plain = getattr(kernels, f"{name}_plain")
+        p1 = cuda_ms(lambda: plain(*a), 1, queued=False, warm=False)
+        k1 = cuda_ms(lambda: fn(*a), 10)
+        k2 = cuda_ms(lambda: fn(*a), 10)
+        p2 = cuda_ms(lambda: plain(*a), 1, queued=False, warm=False)
+        out = fn(*a)
+        if name == "covers":
+            ops = a[0].shape[0] * a[1].shape[0] * 64 * 64 * 9
+        else:
+            ops = float(a[1].sum()) * float(a[3].sum()) * 6
+        kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
+        bounds[name] = bound(list(a), [out], ops, "i32")
+        print(f"time {name} k = {K_MINE}, n = {N_MINE}: kernel {k1:.4f} / "
+              f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (plain, kernel, "
+              f"kernel, plain); bound {bounds[name][0]:.4f} ms "
+              f"({bounds[name][1]}, {ops:.4g} int32 operations), "
+              f"{bounds[name][0] / kms[name][0]:.0%} of it; launches per "
+              f"evaluation {launches[name]} [{card}]")
 
     lap("end")
     print(card)

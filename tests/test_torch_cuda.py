@@ -497,3 +497,84 @@ def test_encode_batch_cuda_matches_cpu(cuda, bank3d):
                                device=cuda) == streams
     assert batch.encode_image_banded(imgs[1], bank3d, device=cuda,
                                      band_rows=48) == want[1]
+
+
+def _cover_operands(k, n, D, seed):
+    """k candidate point sets and n tiles near them; for D = 2 padded sets
+    of 1..64 points with their masks (mining._padded)."""
+    from yaik_tpu_torch.encoder import mining
+    rng = np.random.default_rng(seed)
+    if D == 3:
+        cands = rng.integers(0, 64, (k, 64, 3)).astype(np.uint8)
+        near = cands[rng.integers(0, k, n)].astype(np.int32)
+        tiles = np.clip(near + rng.integers(-6, 7, (n, 64, 3)), 0, 63)
+        return [torch.from_numpy(a) for a in (cands, tiles.astype(np.uint8))]
+    sets = [np.unique(rng.integers(0, 64, (int(rng.integers(1, 65)), 2)),
+                      axis=0)[:64] for _ in range(n)]
+    return [torch.from_numpy(a) for a in (*mining._padded(sets[:k]),
+                                          *mining._padded(sets))]
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (33, 130), (256, 5000)])
+def test_covers_kernel_vs_plain(cuda, k, n):
+    c, t = _cover_operands(k, n, 3, k + n)
+    before = kernels.covers.launches
+    got = kernels.covers(c.to(cuda), t.to(cuda), 75)
+    torch.cuda.synchronize()
+    assert kernels.covers.launches == before + 1
+    assert torch.equal(got.cpu(), kernels.covers_plain(c, t, 75))
+    got = kernels.covers(c.to(cuda, torch.int32), t.to(cuda, torch.int32))
+    assert torch.equal(got.cpu(), kernels.covers_plain(c, t, 75))
+
+
+@pytest.mark.parametrize("k,n", [(1, 1), (33, 130), (256, 5000)])
+@pytest.mark.parametrize("scatter", [False, True])
+def test_covers2d_kernel_vs_plain(cuda, k, n, scatter):
+    """`scatter` shuffles each set's points along its 64 slots, so live
+    and pad points interleave in both halves of a candidate."""
+    ops = _cover_operands(k, n, 2, k + n)
+    if scatter:
+        g = torch.Generator().manual_seed(k)
+        for i in (0, 2):
+            perm = torch.argsort(torch.rand(ops[i].shape[:2], generator=g),
+                                 dim=1)
+            ops[i] = torch.gather(ops[i], 1, perm[..., None].expand(-1, -1, 2))
+            ops[i + 1] = torch.gather(ops[i + 1], 1, perm)
+    got = kernels.covers2d(*(a.to(cuda) for a in ops))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), kernels.covers2d_plain(*ops))
+
+
+def test_encode_rgba_and_passes_cuda_matches_cpu(cuda, bank3d):
+    """RGBA (sprite256) and every pass the reference leaves disabled
+    (img64, 2D with tests/fixtures/Bank2D): the card's streams equal the
+    CPU run's."""
+    from yaik_tpu_torch.encoder import bank2d as bank2dmod
+    from yaik_tpu_torch.encoder.context import EncoderConfig
+    b2 = bank2dmod.load_bank2d(str(FIX / "Bank2D"))
+    cfg = EncoderConfig(enable_single_color=True, enable_smooth_map=True,
+                        enable_2d=True, enable_plnt=True,
+                        enable_plane_gradients=True)
+    for name, config in (("sprite256", None), ("img64", cfg)):
+        img = np.asarray(Image.open(FIX / f"{name}.png"))
+        got = yaik_tpu_torch.encode_image(img, bank3d, device=cuda,
+                                          config=config, bank2d=b2)
+        assert got == yaik_tpu_torch.encode_image(img, bank3d, device="cpu",
+                                                  config=config, bank2d=b2)
+
+
+def test_mine_bank_cuda_matches_cpu(cuda, tmp_path):
+    from yaik_tpu_torch.encoder import mining
+    imgs = [np.asarray(Image.open(FIX / f"{n}.png")) for n in ("img128",
+                                                               "quilt128")]
+    before = kernels.covers.launches
+    got = mining.mine_bank(imgs, tmp_path / "cuda")
+    assert kernels.covers.launches == before + 1
+    assert got == mining.mine_bank(imgs, tmp_path / "cpu", device="cpu")
+    for f in (tmp_path / "cpu").iterdir():
+        assert (tmp_path / "cuda" / f.name).read_bytes() == f.read_bytes()
+    got = mining.mine_bank2d(imgs[:1], tmp_path / "cuda2")
+    assert got == mining.mine_bank2d(imgs[:1], tmp_path / "cpu2",
+                                     device="cpu")
+    for f in (tmp_path / "cpu2").iterdir():
+        assert (tmp_path / "cuda2" / f.name).read_bytes() == f.read_bytes()

@@ -21,12 +21,14 @@ import jax.numpy as jnp
 
 import yaik_tpu_torch
 from yaik_tpu.encoder import bank as bankmod
+from yaik_tpu.encoder import bank2d as jax_bank2d
 from yaik_tpu.encoder import device_pipeline as devp
 from yaik_tpu.encoder import jax_scoring as js
 from yaik_tpu.encoder.context import EncoderConfig
 from yaik_tpu.encoder.context import encode_image as jax_encode_image
 from yaik_tpu.format import swizzle
-from yaik_tpu_torch.encoder import api, emit, pipeline, scoring, tables
+from yaik_tpu_torch.encoder import (api, bank2d, emit, pipeline, scoring,
+                                    tables)
 from yaik_tpu_torch.ops import kernels
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
@@ -203,17 +205,23 @@ def test_score_then_emit_is_encode(bank):
     "rgba", "enable_single_color", "enable_smooth_map", "enable_2d",
     "enable_plnt", "enable_plane_gradients"])
 def test_encode_outside_the_slice_raises(change, bank):
-    """RGBA and the passes the reference leaves disabled raise
-    NotImplementedError; nothing is handed to the host engine."""
+    """RGBA and each pass the reference leaves disabled, which the port
+    once refused: the port's bytes equal the JAX package's device engine's
+    (2D with tests/fixtures/Bank2D, the port's loader and the JAX one)."""
     img = _image("img64")
     cfg = EncoderConfig()
     if change == "rgba":
-        img = np.concatenate([img, np.full(img.shape[:2] + (1,), 255,
-                                           np.uint8)], axis=2)
+        img = np.concatenate([img, (img[:, :, :1] // 2) | 1], axis=2)
     else:
         setattr(cfg, change, True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        yaik_tpu_torch.encode_image(img, bank, device="cpu", config=cfg)
+    b2 = jb2d = None
+    if change == "enable_2d":
+        b2 = bank2d.load_bank2d(str(FIX / "Bank2D"))
+        jb2d = jax_bank2d.load_bank2d(str(FIX / "Bank2D"))
+    got = yaik_tpu_torch.encode_image(img, bank, device="cpu", config=cfg,
+                                      bank2d=b2)
+    assert got == jax_encode_image(img, bank, cfg, engine="device",
+                                   bank2d=jb2d)
 
 
 def test_encode_rejects_bad_images(bank):

@@ -397,14 +397,20 @@ def test_entry_points_default_to_the_card(entry, bank, monkeypatch):
 @pytest.mark.parametrize("change", ["rgba", "enable_2d"])
 @pytest.mark.parametrize("entry", ["encode_batch", "encode_corpus"])
 def test_outside_the_slice_raises(entry, change, bank):
+    """What the batch entry points once refused: an RGBA image now encodes
+    to the JAX package's device engine's bytes; `enable_2d` raises the JAX
+    package's ValueError, since they take no 2D bank (the JAX package's
+    batch engine takes none either)."""
     img = _image("img64")
     cfg = EncoderConfig()
     if change == "rgba":
-        img = np.concatenate([img, np.full((64, 64, 1), 255, np.uint8)], 2)
+        img = np.concatenate([img, 255 - img[:, :, 1:2]], 2)
+        got = getattr(batch, entry)([img], bank, cfg, device="cpu")
+        assert got == [jax_encode_image(img, bank, cfg, engine="device")]
     else:
         cfg.enable_2d = True
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(batch, entry)([img], bank, cfg, device="cpu")
+        with pytest.raises(ValueError, match="enable_2d requires a bank2d"):
+            getattr(batch, entry)([img], bank, cfg, device="cpu")
 
 
 def test_bad_batches_raise(bank):

@@ -4,8 +4,10 @@ reads stay current.
 yaik_tpu_torch keeps its own copies of the JAX package's framework-neutral
 host modules (format/, entropy/, native/, the decode planner and what it
 reads of the host decoder, the host half of alpha, the encoder's bank and
-emission). These tests hold each copy equal to its original on every
-fixture, field by field, and check that no file of the port, chip_smoke.py
+emission, and the encoder's host passes: alpha.py, single_color.py,
+smooth_map.py, ops/plane.py, the gradient host scorer, bank2d.py, corr2d.py
+and plnt.py). These tests hold each copy equal to its original on the
+fixtures, field by field, and check that no file of the port, chip_smoke.py
 or a tests/ helper it imports names the JAX package or jax.
 
 chip_smoke.py runs without the JAX package, so its reference values are
@@ -14,9 +16,8 @@ made here once, on the CPU, by the JAX package, and committed:
   pixels for every stream chip_smoke decodes that has no `.dec.npz`
   golden, and of `reference.decode(host encode(png))` for the images it
   encodes (tile choices fix the pixels, whatever zstd compressed them);
-- the RGBA streams it decodes (the port cannot encode RGBA), as
-  tests/fixtures/<name>.rgba.yaik, encoded by the JAX package's host
-  engine.
+- the RGBA streams it decodes, as tests/fixtures/<name>.rgba.yaik, encoded
+  by the JAX package's host engine.
 `test_digest_is_current` and `test_rgba_fixture_is_current` recompute each
 one with the JAX package. To write them anew (after a change to the codec):
 
@@ -353,6 +354,191 @@ def test_compaction_host_copies_equal_the_jax_package(w, h, monkeypatch):
         devp.emit_tile3d_streams_compact(per_img, w, h, want)
         assert len(got["type"]) == sum(int(r["count"][i]) for r in mine)
         _assert_same(got, want, f"emit_tile3d_streams_compact[{i}]")
+
+
+# -- the encoder's host passes equal the originals ----------------------------
+
+def _alpha_planes():
+    """(alpha plane, case label) of every RGBA image the tests encode: the
+    five alpha cases, sprite256, and sprite256 with a transparent border
+    (a MIPM chunk with a bbox inside the image)."""
+    out = [(rgba_case(n)[:, :, 3], n) for n in sorted(ALPHA_CASES)]
+    sprite = _png("sprite256")[:, :, 3].copy()
+    out.append((sprite, "sprite256"))
+    sprite = sprite.copy()
+    sprite[:64], sprite[-64:], sprite[:, :64], sprite[:, -64:] = 0, 0, 0, 0
+    out.append((sprite, "sprite256_border"))
+    return out
+
+
+def test_alpha_copy_equals_the_jax_package():
+    """mip_prefilter and process_alpha (8-bit, 6-bit full and mipmap-sparse,
+    inverse or not, 1-bit), with _pack6 and the level sweep under them."""
+    from yaik_tpu.encoder import alpha as jalpha
+    from yaik_tpu_torch.encoder import alpha
+    for a, label in _alpha_planes():
+        got, want = alpha.mip_prefilter(a), jalpha.mip_prefilter(a)
+        _assert_same(list(got), list(want), f"mip_prefilter {label}")
+        for mask, bound in ((None, (0, 0, a.shape[1], a.shape[0])),
+                            (got[0], got[2])):
+            for f8 in (True, False):
+                for inv in (True, False):
+                    assert alpha.process_alpha(a, mask, bound, f8, inv) == \
+                        jalpha.process_alpha(a, mask, bound, f8, inv), label
+    vals = np.random.default_rng(0).integers(0, 64, 1001).astype(np.uint8)
+    for n in (0, 1, 2, 3, 4, 1001):
+        assert alpha._pack6(vals[:n]) == jalpha._pack6(vals[:n])
+
+
+def test_single_color_and_smooth_map_copies_equal_the_jax_package():
+    """single_color_out and smooth_map (with what they call of ops/plane.py)
+    on img64 and corr2d128, with no mask and with a mipmap mask."""
+    from yaik_tpu.encoder import single_color as jsc
+    from yaik_tpu.encoder import smooth_map as jsm
+    from yaik_tpu_torch.encoder import single_color, smooth_map
+    for name in ("img64", "corr2d128"):
+        planes = _png(name)[:, :, :3].transpose(2, 0, 1).astype(np.int32)
+        h, w = planes.shape[1:]
+        mask = np.ones((h, w), bool)
+        mask[:16, :] = False
+        for m, bound in ((None, (0, 0, w, h)), (mask, (0, 16, w, h))):
+            _assert_same(single_color.single_color_out(planes, m, bound),
+                         jsc.single_color_out(planes, m, bound), name)
+            _assert_same(list(smooth_map.smooth_map(planes, m)),
+                         list(jsm.smooth_map(planes, m)), name)
+
+
+def test_plane_functions_equal_the_jax_package():
+    from yaik_tpu.ops import plane as jops
+    from yaik_tpu_torch.ops import plane as ops
+    rng = np.random.default_rng(1)
+    p = rng.integers(-128, 256, (24, 40)).astype(np.int32)
+    for order in ("left_right", "top_down"):
+        for block in (1, 2):
+            _assert_same(ops.apply_diff(p, block, order),
+                         jops.apply_diff(p, block, order), order)
+    rgb = rng.integers(0, 256, (3, 24, 40))
+    _assert_same(list(ops.rgb_to_ycocg(*rgb)), list(jops.rgb_to_ycocg(*rgb)),
+                 "rgb_to_ycocg")
+    ycc = ops.rgb_to_ycocg(*rgb)
+    _assert_same(list(ops.ycocg_to_rgb(*ycc)), list(jops.ycocg_to_rgb(*ycc)),
+                 "ycocg_to_rgb")
+    for hx, hy in ((1, 0), (0, 1), (1, 1), (0, 0)):
+        for mode in ("average", "nearest_tl", "nearest_br", "max", "min"):
+            _assert_same(ops.sample_down(p, hx, hy, mode),
+                         jops.sample_down(p, hx, hy, mode), mode)
+    blobs = np.where(rng.random((40, 48)) < 0.55, 255, 0).astype(np.int32)
+    blobs[5:20, 8:30] = 255
+    got, want = blobs.copy(), blobs.copy()
+    ops.erosion(got)
+    jops.erosion(want)
+    _assert_same(got, want, "erosion")
+    _assert_same(ops.reduce_quarter_logic_max(blobs),
+                 jops.reduce_quarter_logic_max(blobs), "reduce_quarter")
+    for q in (blobs, np.zeros_like(blobs)):
+        assert ops.bbox_nonzero(q) == jops.bbox_nonzero(q)
+
+
+def test_gradient_host_scorer_equals_the_jax_package():
+    """score_pass under every plane mask with claims, and run_pass's
+    emission (plane-subset passes after the seven all-plane passes) on
+    gradpair192, claims and mapped corners evolving."""
+    from yaik_tpu.encoder import gradient as jgrad
+    from yaik_tpu_torch.encoder import gradient
+    from yaik_tpu_torch.format import swizzle
+    planes = _png("gradpair192")[:, :, :3].transpose(2, 0, 1).astype(np.int32)
+    h, w = planes.shape[1:]
+    state = [(np.zeros((3, h, w), bool), np.zeros((3, h + 1, w + 1), bool))
+             for _ in range(2)]
+    passes = [(sx, sy, 7) for (sx, sy) in swizzle.GRADIENT_PASS_ORDER] + \
+        [(2, 2, m) for m in (5, 3, 6, 1, 2, 4)]
+    for sx, sy, m in passes:
+        _assert_same(gradient.score_pass(planes, state[0][0], sx, sy, 3, m),
+                     jgrad.score_pass(planes, state[1][0], sx, sy, 3, m),
+                     f"score_pass {sx} {sy} {m}")
+        got = gradient.run_pass(planes, *state[0], sx, sy, 3, 250, m)
+        want = jgrad.run_pass(planes, *state[1], sx, sy, 3, 250, m)
+        assert got == want, (sx, sy, m)
+        _assert_same(state[0], state[1], f"claims after {sx} {sy} {m}")
+    assert state[0][0].any()
+    v = np.arange(-2, 300)
+    _assert_same(gradient.round6p(v), jgrad.round6p(v), "round6p")
+
+
+def test_bank2d_copy_equals_the_jax_package():
+    """load_bank2d's contexts array by array (the 2D bank is the codec's
+    counterpart of weights), and the LutFile2D it writes, which is the
+    committed tests/fixtures/LutFile2D.lut."""
+    from yaik_tpu.encoder import bank2d as jbank2d
+    from yaik_tpu_torch.encoder import bank2d
+    got = bank2d.load_bank2d(str(FIX / "Bank2D"))
+    want = jbank2d.load_bank2d(str(FIX / "Bank2D"))
+    assert got.count == want.count == 12
+    for i, (a, b) in enumerate(zip(got.ctxs, want.ctxs)):
+        for f in dataclasses.fields(a):
+            _assert_same(getattr(a, f.name), getattr(b, f.name),
+                         f"ctxs[{i}].{f.name}")
+    _assert_same(got.points, want.points, "points")
+    lut = bank2d.write_lut2d_file(got)
+    assert lut == jbank2d.write_lut2d_file(want)
+    assert lut == (FIX / "LutFile2D.lut").read_bytes()
+
+
+def test_corr2d_copy_equals_the_jax_package():
+    """run_pass of each plane mode and size on corr2d128's top-left 64x64,
+    claims from the gradient passes and evolving across the passes."""
+    from yaik_tpu.encoder import bank2d as jbank2d
+    from yaik_tpu.encoder import corr2d as jcorr2d
+    from yaik_tpu.encoder import gradient as jgrad
+    from yaik_tpu_torch.encoder import bank2d, corr2d
+    from yaik_tpu_torch.format import swizzle
+    planes = _png("corr2d128")[:64, :64, :3].transpose(2, 0, 1).astype(
+        np.int32)
+    claims = np.zeros((3, 64, 64), bool)
+    mapped = np.zeros((3, 65, 65), bool)
+    for (sx, sy) in swizzle.GRADIENT_PASS_ORDER:
+        jgrad.run_pass(planes, claims, mapped, sx, sy, 3, 250)
+    banks = (bank2d.load_bank2d(str(FIX / "Bank2D")),
+             jbank2d.load_bank2d(str(FIX / "Bank2D")))
+    state = []
+    for _ in range(2):
+        streams = {"color": bytearray(), "type": [], 3: bytearray(),
+                   4: bytearray(), 5: bytearray(), 6: bytearray(),
+                   "maps": {k: np.zeros(swizzle.bitmap_size_bytes(
+                       *k, 64, 64) * 8, np.uint8) for k in ((3, 3), (2, 2))}}
+        state.append((claims.copy(), streams))
+    for mode in (0, 1, 2):
+        for (sx, sy) in ((3, 3), (2, 2)):
+            corr2d.run_pass(planes, state[0][0], banks[0], mode, sx, sy,
+                            state[0][1])
+            jcorr2d.run_pass(planes, state[1][0], banks[1], mode, sx, sy,
+                             state[1][1])
+            _assert_same(list(state[0]), list(state[1]), f"{mode} {sx}")
+    assert state[0][1]["type"]
+    assert corr2d.COMPONENT == jcorr2d.COMPONENT
+
+
+def test_plnt_copy_equals_the_jax_package():
+    """encode_plnt on img64 (no mask) and under a mipmap mask and bound,
+    and the curve tables the PLNT plane decode reads."""
+    from yaik_tpu.encoder import plnt as jplnt
+    from yaik_tpu_torch.encoder import plnt
+    planes = _png("img64")[:, :, :3].transpose(2, 0, 1).astype(np.int32)
+    mask = np.zeros((64, 64), bool)
+    mask[16:48, 8:56] = True
+    for m, bound in ((None, (0, 0, 64, 64)), (mask, (8, 16, 56, 48))):
+        assert plnt.encode_plnt(planes, m, bound) == \
+            jplnt.encode_plnt(planes, m, bound)
+    for mn, mx in ((0, 255), (10, 40), (229, 239), (0, 0), (250, 251)):
+        assert plnt.build_table(mn, mx) == jplnt.build_table(mn, mx)
+    for v in range(0, 64, 7):
+        bn = plnt.min_range_decode(v)
+        assert bn == jplnt.min_range_decode(v)
+        for r in range(0, 128, 9):
+            assert plnt.diff_range_decode(r, bn) == \
+                jplnt.diff_range_decode(r, bn)
+            d = plnt.diff_range_decode(r, bn)
+            assert plnt.curves_from(bn, d) == jplnt.curves_from(bn, d)
 
 
 # -- chip_smoke's reference values are current --------------------------------

@@ -1,14 +1,18 @@
 """yaik_tpu_torch: the PyTorch and CUDA port of yaik_tpu's device decode (every
-chunk family the JAX engine decodes, RGB and RGBA) and device-scored encode.
+chunk family the JAX engine decodes, RGB and RGBA), device-scored encode
+(RGB and RGBA, every pass) and LUT-bank mining.
 
-It runs the per-pixel decode and the encoder's tile scoring on an NVIDIA
+It runs the per-pixel decode, the encoder's tile scoring and the miner's
+coverage matrix on an NVIDIA
 H100 with kernels written by hand in CUDA C++ (`ops/csrc/`). It is
 self-contained: it imports neither jax nor anything of the JAX package
 `yaik_tpu`, and keeps its own copies of the framework-neutral host modules
 it uses, each at its counterpart's relative path (`format/`, `entropy/`,
 `native/`, `decoder/planner.py` with `decoder/chunks.py`, the host half of
 `decoder/alpha.py`, `encoder/bank.py`, `encoder/context.py`,
-`encoder/gradient.py`, `encoder/dyn1d.py`, `encoder/palette_codec.py`).
+`encoder/gradient.py`, `encoder/dyn1d.py`, `encoder/palette_codec.py`, and
+the encoder's host passes `encoder/alpha.py`, `single_color.py`,
+`smooth_map.py`, `corr2d.py`, `bank2d.py`, `plnt.py`, `ops/plane.py`).
 Its native host library builds with g++ at first use into
 `build/yaik_tpu_torch/`; without it the pure-Python twins run.
 
@@ -26,6 +30,13 @@ launched once per 3D pass for it, only the accept bits and the accepted
 tiles' rows downloaded), `encode_corpus` (grouped by shape, batches queued
 on the card ahead of the host's emission, caps grown where content
 overflows them) and `encode_image_banded` (one image in 16-row bands).
+`encode_image` takes RGB and RGBA images and every pass of the JAX
+package (the alpha chunks; UCOL, SMAP, plane-subset gradients, 2D with
+`bank2d=`, PLNT where the config turns them on), scoring the RGB planes on
+the card and running those passes on the host, as the JAX device engine
+does. `decoder.engine.decode_plnt_plane` reconstructs a PLNT plane from
+`decoder.pack.plnt_args`. `encoder.mining` mines LUT banks from a corpus,
+the coverage matrix on the card (`ops/csrc/covers.cu`).
 
 Layout:
   format/, entropy/    - stream structs, swizzle, LUT files, zstd, palette
@@ -46,9 +57,15 @@ Layout:
   encoder/emit.py      - 3D stream emission from the scoring results, dense
                          or compacted (numpy)
   encoder/context.py, gradient.py, dyn1d.py, palette_codec.py
-                       - host emission: chunks, GTIL streams, 1D, palette
-  encoder/api.py       - encode_image(rgb, bank, device, config=None)
+                       - host emission: chunks, GTIL / 2DTL streams, 1D,
+                         palette; the host gradient scorer
+  encoder/alpha.py, single_color.py, smooth_map.py, corr2d.py, bank2d.py,
+  plnt.py              - the host passes: MIPM/ALPM, UCOL, SMAP, 2D, PLNT
+  ops/plane.py         - the pixel-plane functions of those passes (numpy)
+  encoder/api.py       - encode_image(rgb, bank, device, config=None,
+                         bank2d=None)
   encoder/batch.py     - encode_batch, encode_corpus, encode_image_banded
+  encoder/mining.py    - mine_bank, mine_bank2d: LUT-bank mining
   ops/kernels.py       - kernel wrappers beside their plain torch versions
   ops/build.py         - nvcc build at first use into build/yaik_tpu_torch/
   convert.py           - the JAX engine's operands -> the port's, for tests

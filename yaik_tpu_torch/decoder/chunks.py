@@ -3,8 +3,7 @@ walk, the quad-pair orders and the UCOL/SMAP chunk replays.
 
 The port's copy of those parts of `yaik_tpu/decoder/reference.py`
 (`_PAIR_ORDER`, `_PAIR2D`, `iter_chunks`, `decode_ucol_map`,
-`decode_smap_seeds`) and of `yaik_tpu/ops/plane.py`'s YCoCg -> RGB
-transform, which the planner applies to SMAP seeds.
+`decode_smap_seeds`).
 """
 from __future__ import annotations
 
@@ -114,18 +113,3 @@ def decode_smap_seeds(hdr, body: bytes, w: int, h: int):
                 cur += 3
     return np.asarray(seeds, np.int32).reshape(-1, 5)
 
-
-def _cdiv2(v):
-    """C's v / 2 (truncates toward zero) for possibly-negative values."""
-    return np.sign(v) * (np.abs(v) // 2)
-
-
-def ycocg_to_rgb(y, co, cg):
-    """YCoCgtoRGB (EncoderContext.cpp:103)."""
-    co = co * 2
-    cg = cg * 2
-    tmp = y - _cdiv2(cg)
-    g = cg + tmp
-    b = tmp - _cdiv2(co)
-    r = b + co
-    return r, g, b

@@ -240,3 +240,18 @@ def decode_plan(plan: plannermod.DecodePlan, tables: Tables,
                   tables.tab.device)
     out = decode_core(args, tables, t3_d1=t3_d1, grad_final=grad_final)
     return out[: plan.height, : plan.width].cpu().numpy()
+
+
+def decode_plnt_plane(luts: torch.Tensor, codes: torch.Tensor,
+                      vmask: torch.Tensor, nty: int, ntx: int
+                      ) -> torch.Tensor:
+    """The pixel stage of the PLNT plane decode (`pack.plnt_args`'
+    operands, as tensors on one device), the counterpart of
+    `jax_engine.decode_plnt_plane_device`: each pixel's entry of its
+    tile's 16-entry LUT (a gather, where the TPU takes a one-hot product),
+    -999 where the mask leaves a pixel unwritten, tiles relaid to image
+    order. Returns the [nty*8, ntx*8] i32 plane."""
+    vals = torch.gather(luts, 1, codes.to(torch.int64))
+    vals = torch.where(vmask, vals, torch.full_like(vals, -999))
+    return vals.reshape(nty, ntx, 8, 8).transpose(1, 2).reshape(
+        nty * 8, ntx * 8)

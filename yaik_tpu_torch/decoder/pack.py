@@ -5,7 +5,9 @@ explicit `DecodeArgs` the torch engine uploads. Every branch of
 `jax_engine.decode_core` has its operands here: all-plane GTIL gradients,
 3DTL/3DTX LUT tiles (two merged priority layers, or six per-size passes),
 the UCOL/SMAP overlay, plane-variant GTIL, 2DTL (two merged layers, or six
-per-pass passes), the 1DTL residual and alpha.
+per-pass passes), the 1DTL residual and alpha; and, apart from the image
+decode, the PLNT plane (`plnt_args`, the copy of
+`jax_engine.plnt_device_args`).
 
 Counterpart of the JAX engine's plan-time packers
 (`yaik_tpu/decoder/jax_engine.py`: `lut_device_table`,
@@ -39,6 +41,9 @@ from dataclasses import dataclass
 import numpy as np
 
 from yaik_tpu_torch.decoder import planner as plannermod
+from yaik_tpu_torch.encoder.plnt import (curves_from, diff_range_decode,
+                                         min_range_decode)
+from yaik_tpu_torch.entropy import zstd_backend as zstd
 from yaik_tpu_torch.format import swizzle
 
 GRAD_SHIFTS = tuple(swizzle.GRADIENT_PASS_ORDER)
@@ -645,3 +650,62 @@ def _zero_filled(slots: list) -> list:
         return slots
     zero = map_arrays(have, np.zeros_like)
     return [zero if x is None else x for x in slots]
+
+
+def plnt_args(hdr, body: bytes, valid: np.ndarray | None = None):
+    """Host planning of the PLNT plane decode (the copy of
+    `jax_engine.plnt_device_args`): parse one PLNT chunk, `hdr` its
+    `PlaneTile` header and `body` the bytes after it, into dense per-tile
+    arrays. Returns (luts [T, 16] i32, codes [T, 64] i32 pre-clamped to each
+    tile's LUT length, vmask [T, 64] bool, nty, ntx), or None when the bbox
+    is empty. `valid` is the image's [H, W] bool mipmap mask (all pixels
+    when None). PLNT never had an upstream decoder (deprecated at
+    YAIK_API.cpp:567); this is the host half of the standalone plane
+    reconstruction."""
+    h, w = hdr.h, hdr.w
+    nty, ntx = h // 8, w // 8
+    if nty == 0 or ntx == 0:
+        return None
+    usize = zstd.frame_content_size(body[:hdr.stream_size_tile_map])
+    if usize is None or usize > nty * ntx * 2:
+        raise ValueError("PLNT tile map size missing or out of bounds")
+    types = np.frombuffer(
+        zstd.decompress(body[:hdr.stream_size_tile_map], usize), "<u2")
+    codes_packed = zstd.decompress(
+        body[hdr.stream_size_tile_map:
+             hdr.stream_size_tile_map + hdr.stream_size_tile_stream],
+        hdr.expected_size_tile_stream)
+    nib = np.frombuffer(codes_packed, np.uint8)
+    flat = np.empty(nib.size * 2, np.uint8)
+    flat[0::2] = nib & 0xF
+    flat[1::2] = nib >> 4
+
+    if valid is None:
+        vm = np.ones((nty * ntx, 64), bool)
+    else:
+        v = valid[hdr.y:hdr.y + h, hdr.x:hdr.x + w]
+        vm = v.reshape(nty, 8, ntx, 8).transpose(0, 2, 1, 3).reshape(-1, 64)
+    counts = vm.sum(axis=1)
+    live = counts > 0                      # tiles that consumed a type word
+    if int(live.sum()) > len(types):
+        raise ValueError("PLNT tile map shorter than claimed tiles")
+    ends = np.cumsum(counts)
+    if int(ends[-1]) > flat.size:
+        raise ValueError("PLNT code stream shorter than claimed pixels")
+
+    t_of = np.zeros(nty * ntx, np.int64)
+    t_of[live] = types[:int(live.sum())]
+    luts = np.zeros((nty * ntx, 16), np.int32)
+    lens = np.zeros(nty * ntx, np.int32)
+    for t in np.unique(t_of[live]):
+        bn = min_range_decode(int(t) & 0x7F)
+        dist = diff_range_decode((int(t) >> 7) & 0x3F, bn)
+        lut = np.asarray(curves_from(bn, dist)[int(t) >> 13], np.int32)
+        rows = live & (t_of == t)
+        luts[rows, :len(lut)] = lut
+        lens[rows] = len(lut)
+
+    codes = np.zeros((nty * ntx, 64), np.int32)
+    codes[vm] = flat[:int(ends[-1])]
+    codes = np.minimum(codes, np.maximum(lens - 1, 0)[:, None])
+    return (luts, codes, vm, nty, ntx)

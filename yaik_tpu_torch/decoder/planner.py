@@ -32,7 +32,7 @@ import numpy as np
 from yaik_tpu_torch import native
 from yaik_tpu_torch.decoder.chunks import (_PAIR2D, _PAIR_ORDER,
                                            decode_smap_seeds, decode_ucol_map,
-                                           iter_chunks, ycocg_to_rgb)
+                                           iter_chunks)
 from yaik_tpu_torch.entropy import palette, zstd_backend as zstd
 from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.format.headers import (AlphaHeader, FileHeader, Header1D,
@@ -41,6 +41,7 @@ from yaik_tpu_torch.format.headers import (AlphaHeader, FileHeader, Header1D,
                                            HeaderTile3DX, MAGIC,
                                            MipmapHeader, PlaneTile,
                                            UniqueColorHeader)
+from yaik_tpu_torch.ops.plane import ycocg_to_rgb
 
 
 @dataclass

@@ -1,7 +1,7 @@
 """Batched, compacted and pipelined encode on one card: the counterpart of
 `yaik_tpu/encoder/batch.py`.
 
-- `encode_batch` scores B same-size RGB images as one batch: the 7
+- `encode_batch` scores B same-size images as one batch: the 7
   gradient passes and the six 3D passes each run once over [B, 3, H, W]
   (one launch of `score48_mode` and of `values48` per 3D pass, whatever
   B is), only the first `scap` tiles with an alive pixel of each image are
@@ -31,9 +31,12 @@ YAIK_ENC_DCAP_FRAC: caps T/8 and T/16, at least 64), `emit_workers`
 (YAIK_EMIT_WORKERS, no threads) and `max_pix` (YAIK_DEVICE_SCORE_MAX_PIX,
 the port's own ceiling below); YAIK_ENC_DEPTH has no counterpart (above).
 Short batches are not padded: the JAX package pads them to reuse one
-compiled executable, and the port has none to reuse. RGBA images and the
-passes the reference leaves disabled raise NotImplementedError, as
-`encode_image` does. Sharding over several cards (`mesh=`,
+compiled executable, and the port has none to reuse. RGBA images are
+taken, as by the JAX batch engine: the card scores their RGB planes, and
+the alpha chunks are host work of each image's emission. So are the
+passes the reference leaves disabled, where the config turns them on,
+save `enable_2d`: these entry points take no 2D bank, and raise the JAX
+package's ValueError for it. Sharding over several cards (`mesh=`,
 `encode_image_banded_mesh`) is not ported.
 """
 from __future__ import annotations
@@ -202,9 +205,12 @@ def _drain_adaptive(job: _InFlight, cfg: EncoderConfig, tables,
 
 
 def _checked(images, cfg: EncoderConfig) -> list:
+    """The images as arrays, checked as `encode_image` checks them; with
+    no 2D bank to take, `enable_2d` raises the JAX package's ValueError."""
     imgs = [np.asarray(im) for im in images]
     for im in imgs:
-        api._check(im, cfg)
+        api._check(im)
+    api._check_bank2d(cfg, None)
     return imgs
 
 
@@ -218,7 +224,7 @@ def encode_batch(images, bank: bankmod.Bank,
                  cap_frac: int = 8, dcap_frac: int = 16,
                  emit_workers: int = 0,
                  max_pix: int = DEVICE_SCORE_MAX_PIX) -> list[bytes]:
-    """Encode B same-shaped [h, w, 3] u8 images with batched, compacted
+    """Encode B same-shaped [h, w, 3|4] u8 images with batched, compacted
     device scoring on `device`; returns their streams. Caps start from
     those learned for the shape. Images of more than `max_pix` pixels are
     scored in bands (`encode_image_banded`), and a batch of more pixels in
@@ -249,7 +255,7 @@ def encode_corpus(images, bank: bankmod.Bank,
                   device="cuda", emit_workers: int = 0, cap_frac: int = 8,
                   dcap_frac: int = 16,
                   max_pix: int = DEVICE_SCORE_MAX_PIX) -> list[bytes]:
-    """Encode a corpus of [h, w, 3] u8 images of any shapes: grouped by
+    """Encode a corpus of [h, w, 3|4] u8 images of any shapes: grouped by
     shape, scored in batches of up to `batch_size` on `device`, batch k+1
     queued on the card before batch k is downloaded and emitted. Caps
     start from those learned for the shape. Returns the streams in input
@@ -307,7 +313,7 @@ def encode_image_banded(img, bank: bankmod.Bank,
                         config: EncoderConfig | None = None, device="cuda",
                         band_rows: int | None = None,
                         max_pix: int = DEVICE_SCORE_MAX_PIX) -> bytes:
-    """Encode one [h, w, 3] u8 image scored in horizontal bands of
+    """Encode one [h, w, 3|4] u8 image scored in horizontal bands of
     `band_rows` rows (a multiple of 16; default the most that `max_pix`
     allows): each band with one pixel row below it (its tiles' bottom
     corners read that row, as the full image's scoring does), dense

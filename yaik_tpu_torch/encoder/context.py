@@ -1,7 +1,8 @@
 """The encoder's host side of chunk emission: the port's copy of what it
 uses of `yaik_tpu/encoder/context.py` (the reference's
 EncoderContext::Convert, EncoderContext.cpp:8986-9787): the configuration,
-chunk framing, the deferred zstd batch and the GTIL / 3DTL chunk builders.
+chunk framing, the deferred zstd batch and the functions that make the
+GTIL, 2DTL and 3DTL chunks.
 """
 from __future__ import annotations
 
@@ -31,18 +32,17 @@ class EncoderConfig:
     alpha_force_8bit: bool = True     # Convert's ProcessAlpha(true)
     alpha_use_inverse: bool = True
     # SingleColorOut (UCOL): disabled in the reference's Convert at
-    # EncoderContext.cpp:9036; implemented in yaik_tpu/encoder/single_color.py
+    # EncoderContext.cpp:9036; implemented in encoder/single_color.py
     enable_single_color: bool = False
     favor_accuracy: bool = False      # EncoderContext.h:262, CLI sets false
     # Correlation2DSearch (2DTL chunks, RG/GB/RB): inside `#if 0` in the
-    # reference's Convert (:9300-9382); needs a Bank2D
-    # (yaik_tpu/encoder/bank2d.py)
+    # reference's Convert (:9300-9382); needs a Bank2D (encoder/bank2d.py)
     enable_2d: bool = False
     # SmoothMap (SMAP): dead code upstream (no call site; the pass as
-    # written aborts on heap corruption: yaik_tpu/encoder/smooth_map.py)
+    # written aborts on heap corruption: encoder/smooth_map.py)
     enable_smooth_map: bool = False
     # DynamicTileEncode (PLNT, YCoCg range-coded tiles): disabled in the
-    # reference's Convert (`#if 0` :9539-9545); see yaik_tpu/encoder/plnt.py
+    # reference's Convert (`#if 0` :9539-9545); see encoder/plnt.py
     enable_plnt: bool = False
     # plane-subset gradient passes (GTIL with plane != 7): the disabled
     # 2-plane 4x4 calls (`if (0)` :9260-9290, RB/RG/GB order) and 1-plane
@@ -114,6 +114,67 @@ def _gradient_bbox(bitmap: bytes, sx: int, sy: int, w: int, h: int):
     min_x, max_x = int(tx.min()) * tw, (int(tx.max()) + 1) * tw
     min_y, max_y = int(ty.min()) * th, (int(ty.max()) + 1) * th
     return min_x, min_y, max_x - min_x, max_y - min_x
+
+
+def _tile2d_chunk_deferred(streams, cfg, w, h, component, zb):
+    """EndCorrelationSearch(false, component): the 2D variant writes only
+    the 8x8 and 4x4 tile maps (all other header map fields zero), indices
+    premultiplied x2 (interleaved x,y LUT entries), tag '2DTL'
+    (EncoderContext.cpp:7382-7612). Raw streams queue on the zstd batch;
+    the returned closure assembles the chunk after the batch runs."""
+    def qmap(key):
+        raw = streams["maps"][key].astype(np.uint8).tobytes()
+        return len(raw), zb.add(raw, 18, len(raw) * 2)
+
+    n_t8_8, h_t8_8 = qmap((3, 3))
+    n_t4_4, h_t4_4 = qmap((2, 2))
+
+    types = np.asarray(streams["type"], "<u2").tobytes()
+    n_types = len(streams["type"])
+    h_types = zb.add(types, 18, len(types) * 2 + 100) if n_types else None
+
+    colors = np.frombuffer(bytes(streams["color"]), np.uint8).astype(np.int64)
+    colors = (((colors * cfg.color_compression_lut3d) + 127) // 255
+              ).astype(np.uint8).tobytes()
+    h_colors = (zb.add(colors, 18, len(colors) * 2 + 100)
+                if colors else None)
+
+    n_idx, h_idx = {}, {}
+    for bit in (3, 4, 5, 6):
+        raw = bytes((np.frombuffer(bytes(streams[bit]), np.uint8)
+                     .astype(np.int64) * 2).astype(np.uint8))
+        n_idx[bit] = len(streams[bit])
+        h_idx[bit] = zb.add(raw, 18, len(raw) * 2 + 100) if raw else None
+
+    n_colors = len(colors)
+
+    def mk():
+        g = lambda hh: zb.get(hh) if hh is not None else b""
+        z_t8_8, z_t4_4 = g(h_t8_8), g(h_t4_4)
+        z_types, z_colors = g(h_types), g(h_colors)
+        z_idx = {bit: g(h_idx[bit]) for bit in (3, 4, 5, 6)}
+        hdr = HeaderTile3D(
+            stream_color_cnt=n_colors, stream_type_cnt=n_types,
+            stream_3bit_cnt=n_idx[3], stream_4bit_cnt=n_idx[4],
+            stream_5bit_cnt=n_idx[5], stream_6bit_cnt=n_idx[6],
+            compr_type_size=len(z_types), compr_color_size=len(z_colors),
+            compr_3bit_size=len(z_idx[3]), compr_4bit_size=len(z_idx[4]),
+            compr_5bit_size=len(z_idx[5]), compr_6bit_size=len(z_idx[6]),
+            size_t16_8_map=0, size_t8_16_map=0,
+            size_t8_8_map=n_t8_8, size_t4_8_map=0,
+            size_t8_4_map=0, size_t4_4_map=n_t4_4,
+            size_t16_8_map_cmp=0, size_t8_16_map_cmp=0,
+            size_t8_8_map_cmp=len(z_t8_8), size_t4_8_map_cmp=0,
+            size_t8_4_map_cmp=0, size_t4_4_map_cmp=len(z_t4_4),
+            component=component,
+            # the reference only sets compressionRateColor when tiles exist
+            # (EncoderContext.cpp:7506-7512); uninitialized-but-zero otherwise
+            compression_rate_color=(cfg.color_compression_lut3d
+                                    if n_colors else 0))
+        body = (hdr.pack() + z_idx[3] + z_idx[4] + z_idx[5] + z_idx[6]
+                + z_types + z_colors + z_t8_8 + z_t4_4)
+        return _chunk(b"2DTL", body)
+    return mk
 
 
 def _tile3d_chunk_deferred(streams, cfg, w, h, zb):

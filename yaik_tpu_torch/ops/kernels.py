@@ -19,7 +19,10 @@ Counterpart of `yaik_tpu/ops/pallas_kernels.py` for the device decode
 - `score48_mode` (csrc/score48.cu, the pattern-argmin epilogue) replaces
   the Pallas `score48` together with the `argmin` that follows it;
 - `values48` (csrc/values48.cu) replaces the Pallas `values48` and the XLA
-  values stage it twins.
+  values stage it twins;
+- `covers` and `covers2d` (csrc/covers.cu) replace no Pallas kernel: they
+  compute the LUT-bank miner's coverage matrices, XLA on the TPU
+  (`yaik_tpu/encoder/mining.py` `_covers_device`, `_covers2d_device`).
 
 A wrapper runs the plain version for tensors on the CPU, launches its CUDA
 kernel on `torch.cuda.current_stream()` for tensors on a CUDA device, and
@@ -712,3 +715,116 @@ def values48(tiles: torch.Tensor, alive: torch.Tensor, a_c: torch.Tensor,
 
 
 values48.launches = 0
+
+
+# (candidates, tiles) per chunk of the covers plain versions: bounds their
+# [kc, nc, 64 px, 64 pt] i32 distance transients (~3 such tensors live) to
+# ~0.8 GB, whatever k and n are
+COVERS_CHUNK = (8, 2048)
+COVERS_PAD = 4096          # a 2D candidate's pad point coordinate
+
+
+def _covers_plain(cands: torch.Tensor, cmask, tiles: torch.Tensor, tmask,
+                  gate: int, chunk: tuple) -> torch.Tensor:
+    """The coverage matrix [k, n] bool of cands [k, 64, D] against tiles
+    [n, 64, D] (both i32), chunk by chunk: tile t is covered by candidate c
+    when at most 3 of its counted pixels (tmask, or all) have a squared
+    nearest-point distance above `gate`; pad points of a candidate (cmask
+    0) sit at (COVERS_PAD, COVERS_PAD)."""
+    if cmask is not None:
+        cands = torch.where(cmask[..., None], cands, COVERS_PAD)
+    k, n, D = cands.shape[0], tiles.shape[0], cands.shape[2]
+    kc, nc = chunk
+    out = torch.empty((k, n), dtype=torch.bool, device=cands.device)
+    for i in range(0, k, kc):
+        c = cands[i:i + kc]
+        for j in range(0, n, nc):
+            t = tiles[j:j + nc]
+            d = None
+            for a in range(D):
+                e = t[None, :, :, None, a] - c[:, None, None, :, a]
+                d = e * e if d is None else d + e * e
+            viol = d.amin(-1) > gate                       # [kc, nc, 64]
+            if tmask is not None:
+                viol &= tmask[None, j:j + nc]
+            out[i:i + kc, j:j + nc] = viol.sum(-1) <= 3
+    return out
+
+
+def covers_plain(cands: torch.Tensor, tiles: torch.Tensor, gate_px: int = 75,
+                 chunk: tuple = COVERS_CHUNK) -> torch.Tensor:
+    """The 3D coverage matrix (`mining._covers_device`): cands [k, 64, 3],
+    tiles [n, 64, 3], u8 or i32 -> [k, n] bool, True where at most 3 of a
+    tile's 64 pixels have a squared nearest-point distance to the
+    candidate's cloud above gate_px. `chunk` (candidates, tiles) bounds the
+    transient."""
+    return _covers_plain(cands.to(torch.int32), None, tiles.to(torch.int32),
+                         None, gate_px, chunk)
+
+
+def covers2d_plain(cands: torch.Tensor, cand_mask: torch.Tensor,
+                   tiles: torch.Tensor, tile_mask: torch.Tensor,
+                   gate: int = 36, chunk: tuple = COVERS_CHUNK
+                   ) -> torch.Tensor:
+    """The 2D coverage matrix (`mining._covers2d_device`): point sets
+    padded to 64, cands [k, 64, 2] with cand_mask [k, 64] bool (pad points
+    sit at (4096, 4096)), tiles [n, 64, 2] with tile_mask [n, 64] bool (pad
+    pixels are not counted), u8 or i32 coordinates -> [k, n] bool."""
+    return _covers_plain(cands.to(torch.int32), cand_mask,
+                         tiles.to(torch.int32), tile_mask, gate, chunk)
+
+
+def _covers(fn, D: int, cands, cmask, tiles, tmask, gate: int
+            ) -> torch.Tensor:
+    dev = cands.device
+    if cands.ndim != 3 or tiles.ndim != 3:
+        raise ValueError(f"cands and tiles must be [k, 64, {D}] and "
+                         f"[n, 64, {D}]")
+    k, n = cands.shape[0], tiles.shape[0]
+    for t, name, rows in ((cands, "cands", k), (tiles, "tiles", n)):
+        if t.dtype not in (torch.uint8, torch.int32):
+            raise TypeError(f"{name} has dtype {t.dtype}, expected uint8 "
+                            "or int32")
+        if tuple(t.shape) != (rows, 64, D) or t.device != dev:
+            raise ValueError(f"{name} is {tuple(t.shape)} on {t.device}, "
+                             f"expected ({rows}, 64, {D}) on {dev}")
+    if cmask is not None:
+        _expect(cmask, "cand_mask", torch.bool, (k, 64), dev)
+        _expect(tmask, "tile_mask", torch.bool, (n, 64), dev)
+    if not _route(dev):
+        return _covers_plain(cands.to(torch.int32), cmask,
+                             tiles.to(torch.int32), tmask, gate,
+                             COVERS_CHUNK)
+    c = cands.to(torch.int32).contiguous()
+    t = tiles.to(torch.int32).contiguous()
+    out = torch.empty((k, n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().yaik_covers(
+            c.data_ptr(), None if cmask is None else cmask.data_ptr(),
+            t.data_ptr(), None if tmask is None else tmask.data_ptr(), D, k,
+            n, gate, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "yaik_covers")
+    fn.launches += 1
+    return out
+
+
+def covers(cands: torch.Tensor, tiles: torch.Tensor, gate_px: int = 75
+           ) -> torch.Tensor:
+    """The 3D coverage matrix (see covers_plain): cands [k, 64, 3], tiles
+    [n, 64, 3], u8 or i32, on one device -> [k, n] bool, one launch."""
+    return _covers(covers, 3, cands, None, tiles, None, gate_px)
+
+
+covers.launches = 0
+
+
+def covers2d(cands: torch.Tensor, cand_mask: torch.Tensor,
+             tiles: torch.Tensor, tile_mask: torch.Tensor, gate: int = 36
+             ) -> torch.Tensor:
+    """The 2D coverage matrix (see covers2d_plain); all operands on one
+    device, the masks contiguous -> [k, n] bool, one launch."""
+    return _covers(covers2d, 2, cands, cand_mask, tiles, tile_mask, gate)
+
+
+covers2d.launches = 0
