@@ -106,6 +106,15 @@ counting each kernel's launches against what the operands call for:
   library and the card's decode_image (split, fused) of bench_4k and
   img512; the host encode against encode_image on the card; load_bank on
   the device path, which builds none of the host scorer's maps.
+- the emission's zstd pool and the entry point `entry()`: the 4K
+  `encode_image` with its zstd batch on the calling thread and on the pool
+  (serial, pool, pool, serial) in this process, each stream equal to phase
+  3b's, with its `encode:zstd-flush` stage, the batch's stream count and
+  its largest stream's compress time (the flush's floor), the wall and the
+  process's RSS; phase 3d's 16-image corpus on 8 emission threads, equal
+  to phase 3d's streams; and `yaik_tpu_torch.entry.entry()` on img128's
+  stream and LutFile.lut on the card, its `fn(*example_args)` equal to
+  img128's golden with the launches of img128's split decode.
 The decode kernels are held against their plain versions on a batch too
 (B = 4: img512, img512b and the RGB of bench_rgba512 and bench_2d512, and
 random operands; each image of a batch against its own unbatched call,
@@ -1152,6 +1161,7 @@ def main() -> int:
         if st != enc_want(k, img_of[k]):
             raise AssertionError(f"encode_corpus: {k} differs from "
                                  "encode_image")
+    corpus3d = got                                  # phase 3i's reference
     back = yaik_tpu_torch.decode_image(got[ckeys.index(("bench_4k", 0))],
                                        bank, device="cuda")
     if not np.array_equal(back, yaik_tpu_torch.decode_image(
@@ -1685,6 +1695,121 @@ def main() -> int:
     if not same:
         raise AssertionError("the command line's host engines differ")
     shutil.rmtree(host_dir, ignore_errors=True)
+
+    lap("3i")
+    # -- phase 3i: the emission's zstd pool and `entry()`. The 4K
+    # encode_image with its zstd batch run on the calling thread and on the
+    # pool, in the order serial, pool, pool, serial in this process (counts
+    # from 0 before each, read after), each stream equal to phase 3b's; the
+    # encode:zstd-flush stage, the batch's stream count and its largest
+    # stream's compress time (the flush's floor), the wall and the RSS; the
+    # 16-image corpus of phase 3d on 8 emission threads; entry()'s decode
+    # of img128 on the card -----------------------------------------------
+    import resource
+
+    from yaik_tpu_torch import entry as entrymod
+    from yaik_tpu_torch.encoder import context as ectx
+    from yaik_tpu_torch.utils import profiler
+
+    def rss_mb() -> str:
+        """The process's resident memory now and at its peak, MB."""
+        now = int(pathlib.Path("/proc/self/statm").read_text().split()[1])
+        peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        return (f"RSS {now * os.sysconf('SC_PAGE_SIZE') / 2**20:.0f} MB, "
+                f"peak {peak / 1024:.0f} MB")
+
+    def stage_ms(prof, name: str) -> float:
+        """A stage's total ms, wherever it sits in the profile's tree."""
+        todo, ms = [prof.root], 0.0
+        while todo:
+            node = todo.pop()
+            ms += node.total * 1e3 if node.name == name else 0.0
+            todo.extend(node.children.values())
+        return ms
+
+    flushed = []
+    run_batch = ectx._ZstdBatch.run
+    pool_n = ectx._cores()
+    for workers in (0, None, None, 0):
+        def kept_run(zb, workers=workers):     # keeps the 4K batch
+            flushed.append(zb)
+            return run_batch(zb, workers)
+        ectx._ZstdBatch.run = kept_run
+        flushed.clear()
+        for name in ENCODE_KERNELS:
+            getattr(kernels, name).launches = 0
+        try:
+            with profiler.enable() as prof:
+                t = time.perf_counter()
+                st = yaik_tpu_torch.encode_image(img4k, bank3d, device="cuda")
+                wall_s = time.perf_counter() - t
+        finally:
+            ectx._ZstdBatch.run = run_batch
+        got = {n: getattr(kernels, n).launches for n in ENCODE_KERNELS}
+        if got != {"score48": 0, "score48_mode": 6, "values48": 6}:
+            raise AssertionError(f"4K encode launches {got}")
+        for name, k in got.items():
+            launches[name] += k
+        how = ("on the calling thread" if workers == 0
+               else f"on the pool ({pool_n} threads)")
+        print(f"time encode_image bench_4k, zstd {how}: encode:zstd-flush "
+              f"{stage_ms(prof, 'encode:zstd-flush'):.2f} ms, "
+              f"{len(flushed[0].jobs)} streams, wall {wall_s * 1e3:.2f} ms, "
+              f"{rss_mb()}; bytes "
+              f"{'equal to' if st == stream4k else 'DIFFER from'} phase 3b's;"
+              f" launches {got} [{card}]")
+        if st != stream4k:
+            raise AssertionError(f"the 4K stream with zstd {how} differs")
+    jobs = flushed[0].jobs
+    each = []
+    for job in jobs:
+        t = time.perf_counter()
+        ectx._compress_job(job)
+        each.append(time.perf_counter() - t)
+    big = int(np.argmax(each))
+    print(f"time the 4K batch's {len(jobs)} streams one by one: sum "
+          f"{sum(each) * 1e3:.2f} ms, largest {each[big] * 1e3:.2f} ms "
+          f"(stream {big}, {len(jobs[big][0])} bytes in; the flush's floor), "
+          f"sizes in {sorted(len(j[0]) for j in jobs)[::-1][:6]} ... bytes "
+          f"[{card}]")
+
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
+    t = time.perf_counter()
+    got = ebatch.encode_corpus(corpus_imgs, bank3d, batch_size=8,
+                               device="cuda", emit_workers=8)
+    wall_s = time.perf_counter() - t
+    corpus_launches = {n: getattr(kernels, n).launches for n in ENCODE_KERNELS}
+    n_disp = corpus_launches["score48_mode"] // 6
+    same = got == corpus3d
+    print(f"time encode_corpus {len(ckeys)} images, {enc_mpix:.2f} MPix, 8 "
+          f"emission threads on the zstd pool: {wall_s:.3f} s, "
+          f"{enc_mpix / wall_s:.2f} MPix/s, {rss_mb()}; launches "
+          f"{corpus_launches}; streams {'equal to' if same else 'DIFFER from'}"
+          f" phase 3d's [{card}]")
+    if (not same or n_disp < 1 or corpus_launches != {
+            "score48": 0, "score48_mode": 6 * n_disp,
+            "values48": 6 * n_disp}):
+        raise AssertionError("encode_corpus with emission threads is wrong")
+    for name, k in corpus_launches.items():
+        launches[name] += k
+
+    fn, eargs = entrymod.entry(FIX / "img128.yaik", FIX / "LutFile.lut")
+    reset()
+    px = fn(*eargs)
+    torch.cuda.synchronize()
+    got, want = counts(), expected(std_args["img128"])
+    print(f"entry(): fn(*example_args) on {px.device}, launches {got}")
+    if got != want:
+        raise AssertionError(f"entry() launches {got}, img128's split decode "
+                             f"calls for {want}")
+    for name, k in got.items():
+        launches[name] += k
+    hold("img128 through entry()", px.cpu().numpy(), "img128")
+    ms = cuda_ms(lambda: fn(*eargs), 10)       # 64 kernels a call
+    b2b = cuda_ms(lambda: fn(*eargs), 20, queued=False)
+    print(f"time entry() fn img128: device {ms:.4f} ms, back-to-back with "
+          f"host dispatch {b2b:.4f} ms [{card}]")
 
     lap("4")
     # -- phase 4: timing ---------------------------------------------------

@@ -47,7 +47,9 @@ gradient and 3D scorers, numpy coverage): no tensor and no card, the same
 pixels, bytes and files, and an oracle for the card that shares no code
 with its kernels. The device engine is the default of every entry point.
 `native.capi` builds and binds `libyaik_tpu`, the C-ABI host decoder for
-C and C++ callers (`native/include/yaik_tpu.h`).
+C and C++ callers (`native/include/yaik_tpu.h`). Every encode compresses
+an image's zstd streams on one thread per core (what the JAX package does
+under YAIK_ZSTD_WORKERS; the same bytes).
 
 Layout:
   format/, entropy/    - stream structs, swizzle, LUT files, zstd, palette
@@ -87,6 +89,9 @@ Layout:
                          engine)
   ops/kernels.py       - kernel wrappers beside their plain torch versions
   ops/build.py         - nvcc build at first use into build/yaik_tpu_torch/
+  entry.py             - entry(stream, lut, device): (fn, example_args), a
+                         stream's decode on the card, for harnesses
+                         (__graft_entry__.entry)
   convert.py           - the JAX engine's operands -> the port's, for tests
 """
 

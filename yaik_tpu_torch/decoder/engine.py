@@ -132,6 +132,23 @@ def d1_vals(prm: torch.Tensor, codes4: torch.Tensor, wm2: torch.Tensor,
     return img, channel_mask(img)
 
 
+def salt_d1_color0(prm: torch.Tensor, s) -> torch.Tensor:
+    """A bench hook, the counterpart of `jax_engine.salt_d1_color0`: a new
+    d1_prm (`pack.pack_d1_blocks`) with every channel's color0 byte raised
+    by `s` mod 256 (an int, or an integer tensor that broadcasts), so that
+    each step of a timed chain decodes operands that depend on the step
+    before. Row 0 holds c0 | c1<<8 | c2<<16; it is rewritten with bits
+    24-31 zeroed, as the JAX hook writes it, and rows 1-4 are kept. The row
+    axis comes first in the port's layouts: [5, G4] for one stream,
+    [5, B, G4] for a batch (`stack_args`, whose 1D operands are
+    `DecodeArgs.ROW_FIRST`), where the JAX package's batch is [B, 5, G4]."""
+    p0 = prm[0:1]
+    nb = ((((p0 & 0xFF) + s) & 0xFF)
+          | ((((p0 >> 8) & 0xFF) + s) & 0xFF) << 8
+          | ((((p0 >> 16) & 0xFF) + s) & 0xFF) << 16)
+    return torch.cat([nb.to(prm.dtype), prm[1:]])
+
+
 def lut_passes(plane: torch.Tensor, tab: torch.Tensor, passes) -> torch.Tensor:
     """Apply `pack.LutPass`es (on `tab`) in order, each under its tiles'
     channels; a None pass is absent. `plane` [(B,) H, W], the passes'

@@ -11,11 +11,12 @@ the MIPM / ALPM alpha chunks, and the passes the reference's Convert leaves
 disabled when the config turns them on (UCOL, SMAP, the plane-subset
 gradient passes, the 2D passes, PLNT), in Convert's order, then gradient
 emission, the palette codec, 3D stream emission, the 1D residual, chunk mux
-and zstd. Every host module is the port's copy of the JAX package's
-framework-neutral code (`encoder/context.py`, `alpha.py`,
-`single_color.py`, `smooth_map.py`, `gradient.py`, `corr2d.py`,
-`corr3d.py`, `plnt.py`, `palette_codec.py`, `dyn1d.py`, `emit.py`,
-`native/`).
+and zstd (its streams on one thread per core, `context._ZstdBatch.run`, as
+the JAX package's YAIK_ZSTD_WORKERS; the same bytes). Every host module is
+the port's copy of the JAX package's framework-neutral code
+(`encoder/context.py`, `alpha.py`, `single_color.py`, `smooth_map.py`,
+`gradient.py`, `corr2d.py`, `corr3d.py`, `plnt.py`, `palette_codec.py`,
+`dyn1d.py`, `emit.py`, `native/`).
 
 `engine="host"` scores on the host instead, as the JAX package's
 `engine="host"` does: the gradient passes by `gradient.score_pass`, the

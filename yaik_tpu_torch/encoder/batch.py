@@ -30,6 +30,9 @@ here, with its defaults: `cap_frac` and `dcap_frac` (YAIK_ENC_CAP_FRAC,
 YAIK_ENC_DCAP_FRAC: caps T/8 and T/16, at least 64), `emit_workers`
 (YAIK_EMIT_WORKERS, no threads) and `max_pix` (YAIK_DEVICE_SCORE_MAX_PIX,
 the port's own ceiling below); YAIK_ENC_DEPTH has no counterpart (above).
+YAIK_ZSTD_WORKERS has none either: each zstd batch, every emission
+thread's too, goes to the process's pool of one thread per core
+(`context._ZstdBatch.run`).
 Short batches are not padded: the JAX package pads them to reuse one
 compiled executable, and the port has none to reuse. RGBA images are
 taken, as by the JAX batch engine: the card scores their RGB planes, and
@@ -152,8 +155,8 @@ def _emit_from_unpacked(imgs: list, packed: np.ndarray, per_pass: list,
     """Each image's stream from the unpacked blob of a batch that fit its
     caps. With `emit_workers` > 1 the images are emitted on that many
     threads, each with its own zstd batch (the host library's and zstd's
-    calls release the GIL); else all streams compress back to back in one
-    shared zstd batch."""
+    calls release the GIL); else all streams go to one shared zstd batch.
+    Every batch compresses on the process's zstd pool."""
     h, w = imgs[0].shape[:2]
     grad = _split_gradients(packed, w, h)
     pres = [_Precomputed(

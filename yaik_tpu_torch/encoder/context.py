@@ -6,6 +6,9 @@ GTIL, 2DTL and 3DTL chunks.
 """
 from __future__ import annotations
 
+import os
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -56,11 +59,51 @@ def _chunk(tag: bytes, body: bytes) -> bytes:
     return HeaderBase(tag, length).pack() + body + b"\0" * (length - len(body))
 
 
+def _compress_job(job: tuple) -> bytes:
+    data, level, cap = job
+    return zstd.compress(data, level, cap)
+
+
+_POOL: ThreadPoolExecutor | None = None
+_POOL_LOCK = threading.Lock()
+
+
+def _cores() -> int:
+    return len(os.sched_getaffinity(0))
+
+
+def _pool() -> ThreadPoolExecutor:
+    """The process's zstd pool, one thread per usable core, made at first
+    use (under a lock: emission threads flush their batches at once)."""
+    global _POOL
+    with _POOL_LOCK:
+        if _POOL is None:
+            _POOL = ThreadPoolExecutor(_cores(), thread_name_prefix="zstd")
+        return _POOL
+
+
+def _forget_pool() -> None:
+    """A forked child has none of its parent's threads, so the inherited
+    pool would take work and never run it: the child makes its own."""
+    global _POOL, _POOL_LOCK
+    _POOL, _POOL_LOCK = None, threading.Lock()
+
+
+os.register_at_fork(after_in_child=_forget_pool)
+
+
 class _ZstdBatch:
     """Deferred zstd-18 compression for one image's chunk streams: emission
-    queues raw streams, `run` compresses the set back to back (the level-18
-    workspace stays hot in cache across the ~28 calls), and each chunk's
-    closure reads its results with `get`."""
+    queues raw streams, `run` compresses the set, and each chunk's closure
+    reads its results with `get`.
+
+    `run` fans the streams out over the process's one pool (the JAX
+    package does so under YAIK_ZSTD_WORKERS): the ctypes call releases the
+    GIL and each thread compresses with its own CCtx
+    (`zstd_backend._cctx`), so the bytes are those of a serial run. The
+    pool lives as long as the process: a pool made per run would start
+    new threads, each allocating a level-18 CCtx that is never freed when
+    its thread ends."""
     __slots__ = ("jobs", "results")
 
     def __init__(self):
@@ -73,8 +116,26 @@ class _ZstdBatch:
         self.jobs.append((bytes(data), level, cap))
         return len(self.jobs) - 1
 
-    def run(self) -> None:
-        self.results = [zstd.compress(d, lv, c) for (d, lv, c) in self.jobs]
+    def run(self, workers: int | None = None) -> None:
+        """Compress every queued stream; results in slot order. At most
+        `workers` streams (default: one per usable core) compress at once,
+        each worker taking the next stream as it frees up; one stream, or
+        `workers` below 2, compresses on the calling thread. A stream that
+        fails to compress raises here."""
+        n = min(_cores() if workers is None else workers, len(self.jobs))
+        if n < 2:
+            self.results = [_compress_job(j) for j in self.jobs]
+            return
+        results = [None] * len(self.jobs)
+        slots = iter(range(len(self.jobs)))   # shared: next() holds the GIL
+
+        def drain():
+            for i in slots:
+                results[i] = _compress_job(self.jobs[i])
+
+        for f in [_pool().submit(drain) for _ in range(n)]:
+            f.result()
+        self.results = results
 
     def get(self, h: int) -> bytes:
         return self.results[h]

@@ -1,6 +1,6 @@
 """YAIK bitstream structures (shared encoder/decoder contract): the port's
 copy of `yaik_tpu/format/headers.py`, holding the structs the port reads or
-writes.
+writes and `normalize_stream`.
 
 Byte-exact mirrors of the C structs in the reference `include/YAIK_private.h`
 (FileHeader :96-105, HeaderBase :107-110, MipmapHeader :112-118,
@@ -264,3 +264,20 @@ class LUTHeader(_Struct):
     version: int
     entry_count: int    # stored count-1: tables = entry_count + 1
 
+
+def normalize_stream(stream: bytes) -> bytes:
+    """Zero the two header bytes the C++ reference encoder leaves
+    uninitialized (stack garbage written verbatim into the file): the GTIL
+    `version` (HeaderGradientTile on the stack, EncoderContext.cpp:4240,
+    never assigned before the fwrite) and the 1DTL pad byte after
+    Header1D.version. Byte comparisons with the reference's streams compare
+    normalized streams; decoders ignore both bytes. The port's copy of
+    `yaik_tpu.format.headers.normalize_stream`, a bench hook."""
+    from yaik_tpu_torch.decoder.reference import iter_chunks
+    out = bytearray(stream)
+    for tag, off, _body in iter_chunks(stream):
+        if tag == b"GTIL":
+            out[off + 25] = 0
+        if tag == b"1DTL":
+            out[off + 19] = 0
+    return bytes(out)
