@@ -115,6 +115,18 @@ counting each kernel's launches against what the operands call for:
   to phase 3d's streams; and `yaik_tpu_torch.entry.entry()` on img128's
   stream and LutFile.lut on the card, its `fn(*example_args)` equal to
   img128's golden with the launches of img128's split decode.
+- the split over a list of devices (`devices=`, the JAX package's
+  `mesh=`): `yaik_tpu_torch.entry.dryrun_multichip(4, devices=[cuda:0] *
+  4)`, and over `parallel.batch.data_devices()` where the machine has
+  several cards: the JAX package's seven axes (batch, spatial, RGBA, 2DTL
+  and corpus decode, the split encode-scoring blob, the banded encode),
+  each against its golden or unsplit twin, with each axis's launches per
+  device, every kernel an axis reaches launched at least once a slice
+  (on one card the slices run one after another: the split and the join,
+  not scaling); and the walls of the 52-stream `decode_corpus` and the
+  16-image `encode_corpus` over `[cuda:0] * 2`, the slices dispatched
+  from the calling thread and from a thread each, against
+  `device="cuda:0"`, least of 3.
 The decode kernels are held against their plain versions on a batch too
 (B = 4: img512, img512b and the RGB of bench_rgba512 and bench_2d512, and
 random operands; each image of a batch against its own unbatched call,
@@ -1810,6 +1822,98 @@ def main() -> int:
     b2b = cuda_ms(lambda: fn(*eargs), 20, queued=False)
     print(f"time entry() fn img128: device {ms:.4f} ms, back-to-back with "
           f"host dispatch {b2b:.4f} ms [{card}]")
+
+    lap("3j")
+    # -- phase 3j: the split over a list of devices (`devices=`). The port's
+    # dryrun_multichip (the JAX package's seven axes) over [cuda:0] * 4,
+    # and over every card where there are several (counts from 0 before
+    # each, read after); each kernel an axis reaches launches at least
+    # once a slice on each listed card. On one card the four slices run one
+    # after another: this shows the split and the join, not scaling. Then
+    # the walls of phase 3c's and 3d's corpora split over [cuda:0] * 2,
+    # dispatched from this thread and from a thread a slice, against
+    # device="cuda:0" (least of 3, in turns) -------------------------------
+    split_kernels = DECODE_KERNELS + ENCODE_KERNELS
+    runs = [("[cuda:0] * 4", [dev] * 4)]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("data_devices()", batch.data_devices()))
+    else:
+        print("dryrun_multichip over distinct cards: not run, "
+              f"{torch.cuda.device_count()} card present")
+    for label, devs in runs:
+        for name in split_kernels:
+            getattr(kernels, name).launches = 0
+            getattr(kernels, name).per_device.clear()
+        t = time.perf_counter()
+        per_axis = entrymod.dryrun_multichip(len(devs), devices=devs)
+        wall_s = time.perf_counter() - t
+        for name in split_kernels:
+            launches[name] += getattr(kernels, name).launches
+        slices = {str(d): devs.count(d) for d in devs}
+        for axis, per_dev in per_axis.items():
+            print(f"dryrun_multichip {label} {axis}: launches per device "
+                  f"{per_dev}")
+            reached = {k for ks in per_dev.values() for k in ks}
+            short = [(d, k) for d, m in slices.items() for k in reached
+                     if per_dev.get(d, {}).get(k, 0) < m]
+            if not reached or short or set(per_dev) - set(slices):
+                raise AssertionError(f"dryrun_multichip {label} {axis}: "
+                                     f"launches {per_dev} miss a slice of "
+                                     f"{slices}: {short}")
+        n = len(devs)
+        want1 = {k: v * n for k, v in expected(std_args["img64"]).items()
+                 if v}
+        got1 = {k: sum(c.get(k, 0) for c in per_axis["DP"].values())
+                for k in want1}
+        got6 = {k: sum(c.get(k, 0) for c in per_axis[
+            "encode-scoring DP"].values()) for k in ENCODE_KERNELS}
+        if got1 != want1 or got6 != {"score48": 0, "score48_mode": 6 * n,
+                                     "values48": 6 * n}:
+            raise AssertionError(f"dryrun_multichip {label}: DP launches "
+                                 f"{got1} (want {want1}), encode-scoring "
+                                 f"{got6}")
+        print(f"dryrun_multichip {label}: the seven axes in {wall_s:.2f} s; "
+              f"DP {got1}, encode-scoring {got6}: one launch set a slice "
+              f"[{card}]")
+
+    def thread_a_slice(fn, jobs: list) -> list:
+        """The alternative to `batch.over_slices`: each slice dispatched
+        from a thread of its own."""
+        with ThreadPoolExecutor(len(jobs)) as pool:
+            return list(pool.map(lambda job: fn(*job), jobs))
+
+    corpus_streams = [src[n] for n in corpus]
+    one_thread = batch.over_slices
+    split_s: dict = {}
+    for _ in range(3):
+        for how in ("device=cuda:0", "devices=[cuda:0] * 2",
+                    "devices=[cuda:0] * 2, a thread a slice"):
+            kw = ({"device": dev} if how.startswith("device=")
+                  else {"devices": [dev] * 2})
+            if how.endswith("slice"):
+                batch.over_slices = thread_a_slice
+            try:
+                t = time.perf_counter()
+                res = batch.decode_corpus(corpus_streams, bank, batch_size=8,
+                                          **kw)
+                t_dec = time.perf_counter() - t
+                t = time.perf_counter()
+                enc = ebatch.encode_corpus(corpus_imgs, bank3d,
+                                           batch_size=8, **kw)
+                t_enc = time.perf_counter() - t
+            finally:
+                batch.over_slices = one_thread
+            if not all(np.array_equal(r, ref[n]) for r, n in
+                       zip(res, corpus)) or enc != corpus3d:
+                raise AssertionError(f"the corpora with {how} differ")
+            for key, s in (("decode", t_dec), ("encode", t_enc)):
+                split_s.setdefault((key, how), []).append(s)
+    for (key, how), walls in split_s.items():
+        mpix = corpus_mpix if key == "decode" else enc_mpix
+        print(f"time {key}_corpus {mpix:.2f} MPix, batch_size 8, {how}: "
+              f"least of 3 {min(walls):.3f} s ({mpix / min(walls):.2f} "
+              f"MPix/s), walls {' '.join(f'{w:.3f}' for w in walls)} s; "
+              f"pixels / bytes equal to phase 3c's / 3d's [{card}]")
 
     lap("4")
     # -- phase 4: timing ---------------------------------------------------

@@ -578,3 +578,17 @@ def test_mine_bank_cuda_matches_cpu(cuda, tmp_path):
                                      device="cpu")
     for f in (tmp_path / "cpu2").iterdir():
         assert (tmp_path / "cuda2" / f.name).read_bytes() == f.read_bytes()
+
+
+def test_split_over_a_repeated_card_counts_launches_per_device(cuda, bank):
+    """decode_batch over [cuda:0] * 2: each slice launches the split
+    decode's kernels once, and `per_device` counts both on the card."""
+    from yaik_tpu_torch.parallel import batch
+    streams = [(FIX / "img128.yaik").read_bytes()] * 2
+    kernels.grad_plane.per_device.clear()
+    kernels.t3_merged.per_device.clear()
+    got = batch.decode_batch(streams, bank, devices=[cuda] * 2)
+    assert kernels.grad_plane.per_device == {cuda: 2}
+    assert kernels.t3_merged.per_device == {cuda: 2}
+    want = np.load(FIX / "img128.dec.npz")["rgb"]
+    assert all(np.array_equal(g, want) for g in got)

@@ -23,6 +23,7 @@ The device engine stays the default; the host one runs only when named.
 """
 from __future__ import annotations
 
+import threading
 import weakref
 from dataclasses import dataclass
 
@@ -84,20 +85,24 @@ def bank_of(lut) -> LutBank:
 
 class DeviceTables:
     """`build(bank, device)` results, kept per (bank, device). Banks are
-    held weakly, so an entry lives as long as its bank."""
+    held weakly, so an entry lives as long as its bank. Threads may share
+    it: an entry is built once, under a lock."""
 
     def __init__(self, build):
         self._build = build
         self._entries: list = []     # (weakref to bank, device, value)
+        self._lock = threading.Lock()
 
     def get(self, bank, device: torch.device):
-        self._entries = [e for e in self._entries if e[0]() is not None]
-        for ref, dev, value in self._entries:
-            if ref() is bank and dev == device:
-                return value
-        value = self._build(bank, device)
-        self._entries.append((weakref.ref(bank), device, value))
-        return value
+        with self._lock:
+            self._entries = [e for e in self._entries
+                             if e[0]() is not None]
+            for ref, dev, value in self._entries:
+                if ref() is bank and dev == device:
+                    return value
+            value = self._build(bank, device)
+            self._entries.append((weakref.ref(bank), device, value))
+            return value
 
 
 _TABLES = DeviceTables(lambda bank, dev: enginemod.Tables.build(

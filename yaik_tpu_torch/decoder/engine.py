@@ -76,6 +76,29 @@ def device_of(device) -> torch.device:
     return dev
 
 
+class _Default(str):
+    """The `device` default of the entry points that also take `devices=`:
+    equal to "cuda", and told apart from a caller's own "cuda" by
+    identity."""
+
+
+CARD = _Default("cuda")
+
+
+def devices_of(device, devices) -> list[torch.device]:
+    """The devices a call splits its work over: `devices`, each checked
+    as `device_of` checks it (one device may be listed more than once),
+    or `[device]` when `devices` is None. Passing both raises."""
+    if devices is None:
+        return [device_of(device)]
+    if device is not CARD:
+        raise ValueError("pass device= or devices=, not both")
+    devs = [device_of(d) for d in devices]
+    if not devs:
+        raise ValueError("devices= lists no device")
+    return devs
+
+
 @dataclass(frozen=True)
 class Tables:
     """A bank's LUT tables: the host `LutTable`s the packer reads and their

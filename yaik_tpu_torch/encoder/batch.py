@@ -1,4 +1,4 @@
-"""Batched, compacted and pipelined encode on one card: the counterpart of
+"""Batched, compacted and pipelined encode: the counterpart of
 `yaik_tpu/encoder/batch.py`.
 
 - `encode_batch` scores B same-size images as one batch: the 7
@@ -23,6 +23,9 @@
   the wall; PERF.md.)
 - `encode_image_banded` scores one image in horizontal bands of 16-row
   multiples, each with a one-row halo, and emits the joined grids.
+- `encode_image_banded_mesh` scores one image in one band per device
+  (the JAX package's band arithmetic: equal bands of 16-row multiples,
+  the bottom padded by repeating the last row, a one-row halo each).
 
 Every stream is byte-identical to `api.encode_image`'s (and so to the JAX
 package's). The JAX package's environment variables are keyword arguments
@@ -39,8 +42,21 @@ taken, as by the JAX batch engine: the card scores their RGB planes, and
 the alpha chunks are host work of each image's emission. So are the
 passes the reference leaves disabled, where the config turns them on,
 save `enable_2d`: these entry points take no 2D bank, and raise the JAX
-package's ValueError for it. Sharding over several cards (`mesh=`,
-`encode_image_banded_mesh`) is not ported.
+package's ValueError for it.
+
+Sharding over several devices, the JAX package's `mesh=` over a "data"
+axis: `encode_batch` and `encode_corpus` take `devices=`, a list of
+torch devices in the mesh's place (`parallel.batch.data_devices`). Each
+batch is split into `len(devices)` equal slices of its images; slice i is
+uploaded and scored on `devices[i]` with that device's bank tables and
+scan orders, its blob comes back by its own `.cpu()`, and its images are
+emitted in order. A slice that overflows a cap is scored again with the
+grown caps, which `_CAP_STATE` shares between all devices. The bytes are
+those of the unsplit encode. A batch (`encode_batch`) or a `batch_size`
+(`encode_corpus`) that the device count does not divide raises the JAX
+package's ValueError; a short last batch of a corpus is not padded, and
+its slices differ by at most one image. `device=` beside `devices=`
+raises.
 """
 from __future__ import annotations
 
@@ -51,15 +67,17 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from yaik_tpu_torch.decoder.engine import device_of
+from yaik_tpu_torch.decoder.engine import CARD, device_of, devices_of
 from yaik_tpu_torch.encoder import api, pipeline, scoring
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder.context import EncoderConfig, _ZstdBatch
-from yaik_tpu_torch.encoder.tables import device_tables
+from yaik_tpu_torch.encoder.tables import BankTables, device_tables
 from yaik_tpu_torch.format import swizzle
+from yaik_tpu_torch.parallel import batch as pbatch
 from yaik_tpu_torch.utils import profiler
 
-__all__ = ["encode_batch", "encode_corpus", "encode_image_banded"]
+__all__ = ["encode_batch", "encode_corpus", "encode_image_banded",
+           "encode_image_banded_mesh"]
 
 # Pixels per scoring dispatch (all images of a batch, or one band). The
 # scoring's transients peak at 139 bytes per pixel above the planes
@@ -125,12 +143,13 @@ def _split_gradients(packed: np.ndarray, w: int, h: int) -> list:
 
 @dataclasses.dataclass
 class _InFlight:
-    """A queued batch: its images (and their corpus indices), the caps
-    and scan orders it was scored with, and its blob on the device, where
-    the card may still be writing it."""
+    """A queued batch: its images (and their indices), the caps, bank
+    tables and scan orders it was scored with, and its blob on the device,
+    where the device may still be writing it."""
     chunk: list
     imgs: list
     caps: tuple
+    tables: BankTables
     perms: list
     blob: torch.Tensor
 
@@ -147,7 +166,23 @@ def _dispatch_batch(chunk: list, imgs: list, cfg: EncoderConfig, tables,
     packed_g, claims = _score_gradients(planes, cfg)
     blob = torch.cat([packed_g, pipeline._tile3d_all_compact(
         planes, claims, tables, perms, caps)], dim=1)
-    return _InFlight(chunk, imgs, caps, perms, blob)
+    return _InFlight(chunk, imgs, caps, tables, perms, blob)
+
+
+def _dispatch_split(chunks: list, imgs: list, cfg: EncoderConfig,
+                    states: list, caps: tuple) -> list:
+    """Queue the scoring of each chunk (image indices) on its device, whose
+    (bank tables, scan orders) are the matching entry of `states`: one
+    `_InFlight` a chunk."""
+    return pbatch.over_slices(_dispatch_batch, [
+        (c, [imgs[i] for i in c], cfg, tabs, caps, perms)
+        for c, (tabs, perms) in zip(chunks, states)])
+
+
+def _device_states(bank: bankmod.Bank, devs: list, w: int, h: int) -> list:
+    """Each device's (bank tables, scan orders of a w x h image)."""
+    return [(device_tables(bank, d), pipeline.scan_perms(w, h, d))
+            for d in devs]
 
 
 def _emit_from_unpacked(imgs: list, packed: np.ndarray, per_pass: list,
@@ -187,7 +222,7 @@ def _emit_from_unpacked(imgs: list, packed: np.ndarray, per_pass: list,
 _CAP_STATE: dict = {}
 
 
-def _drain_adaptive(job: _InFlight, cfg: EncoderConfig, tables,
+def _drain_adaptive(job: _InFlight, cfg: EncoderConfig,
                     emit_workers: int) -> list:
     """Wait for a batch and emit it; while any image overflows its caps,
     grow them to fit (`caps_fit`, remembered in _CAP_STATE) and score the
@@ -206,7 +241,7 @@ def _drain_adaptive(job: _InFlight, cfg: EncoderConfig, tables,
         caps = tuple((max(s1, s2), max(d1, d2)) for (s1, d1), (s2, d2)
                      in zip(fit, _CAP_STATE.get(key, fit)))
         _CAP_STATE[key] = caps
-        job = _dispatch_batch(job.chunk, job.imgs, cfg, tables, caps,
+        job = _dispatch_batch(job.chunk, job.imgs, cfg, job.tables, caps,
                               job.perms)
 
 
@@ -225,85 +260,108 @@ def _per_dispatch(h: int, w: int, batch_size: int, max_pix: int) -> int:
     return max(1, min(batch_size, max_pix // (h * w)))
 
 
+def _drain_split(jobs: list, cfg: EncoderConfig, emit_workers: int,
+                 results: list) -> None:
+    """Each queued chunk's streams into `results` at its image indices."""
+    for job in jobs:
+        for i, st in zip(job.chunk, _drain_adaptive(job, cfg, emit_workers)):
+            results[i] = st
+
+
+def _banded_each(imgs: list, idxs: list, bank: bankmod.Bank,
+                 cfg: EncoderConfig, devs: list, max_pix: int,
+                 results: list) -> None:
+    """`encode_image_banded` of the images at `idxs`, in turn on each
+    device of `devs`."""
+    for k, i in enumerate(idxs):
+        results[i] = encode_image_banded(imgs[i], bank, cfg,
+                                         devs[k % len(devs)],
+                                         max_pix=max_pix)
+
+
 def encode_batch(images, bank: bankmod.Bank,
-                 config: EncoderConfig | None = None, device="cuda",
+                 config: EncoderConfig | None = None, device=CARD,
                  cap_frac: int = 8, dcap_frac: int = 16,
                  emit_workers: int = 0,
-                 max_pix: int = DEVICE_SCORE_MAX_PIX) -> list[bytes]:
+                 max_pix: int = DEVICE_SCORE_MAX_PIX,
+                 devices: list | None = None) -> list[bytes]:
     """Encode B same-shaped [h, w, 3|4] u8 images with batched, compacted
-    device scoring on `device`; returns their streams. Caps start from
-    those learned for the shape. Images of more than `max_pix` pixels are
-    scored in bands (`encode_image_banded`), and a batch of more pixels in
-    parts."""
+    device scoring on `device`, or split over `devices`; returns their
+    streams. Caps start from those learned for the shape. Images of more
+    than `max_pix` pixels are scored in bands (`encode_image_banded`, in
+    turn on each device), and a slice of more pixels in parts."""
     cfg = config or EncoderConfig()
     imgs = _checked(images, cfg)
     if any(im.shape != imgs[0].shape for im in imgs):
         raise ValueError("encode_batch requires same-shaped images")
+    devs = devices_of(device, devices)
+    if len(imgs) % len(devs):
+        raise ValueError(
+            f"encode over {len(devs)} devices: they must divide the batch "
+            f"size {len(imgs)} - pass a batch whose size is a multiple of "
+            "the device count")
     h, w = imgs[0].shape[:2]
+    streams: list = [None] * len(imgs)
     if h * w > max_pix:
-        return [encode_image_banded(im, bank, cfg, device, max_pix=max_pix)
-                for im in imgs]
-    dev = device_of(device)
-    tables = device_tables(bank, dev)
-    perms = pipeline.scan_perms(w, h, dev)
-    per = _per_dispatch(h, w, len(imgs), max_pix)
-    streams = []
-    for s in range(0, len(imgs), per):
+        _banded_each(imgs, range(len(imgs)), bank, cfg, devs, max_pix,
+                     streams)
+        return streams
+    states = _device_states(bank, devs, w, h)
+    slices = pbatch.split(list(range(len(imgs))), len(devs))
+    per = _per_dispatch(h, w, len(slices[0]), max_pix)
+    for s in range(0, len(slices[0]), per):
         caps = _CAP_STATE.get((h, w, cfg.reject_factor), pipeline.pass_caps(
             w, h, cap_frac, dcap_frac))
-        job = _dispatch_batch(None, imgs[s:s + per], cfg, tables, caps, perms)
-        streams += _drain_adaptive(job, cfg, tables, emit_workers)
+        _drain_split(_dispatch_split([sl[s:s + per] for sl in slices], imgs,
+                                     cfg, states, caps),
+                     cfg, emit_workers, streams)
     return streams
 
 
 def encode_corpus(images, bank: bankmod.Bank,
                   config: EncoderConfig | None = None, batch_size: int = 8,
-                  device="cuda", emit_workers: int = 0, cap_frac: int = 8,
+                  device=CARD, emit_workers: int = 0, cap_frac: int = 8,
                   dcap_frac: int = 16,
-                  max_pix: int = DEVICE_SCORE_MAX_PIX) -> list[bytes]:
+                  max_pix: int = DEVICE_SCORE_MAX_PIX,
+                  devices: list | None = None) -> list[bytes]:
     """Encode a corpus of [h, w, 3|4] u8 images of any shapes: grouped by
-    shape, scored in batches of up to `batch_size` on `device`, batch k+1
-    queued on the card before batch k is downloaded and emitted. Caps
-    start from those learned for the shape. Returns the streams in input
-    order, byte-identical to `encode_image`'s."""
+    shape, scored in batches of up to `batch_size` on `device`, or each
+    batch split over `devices`, batch k+1 queued before batch k is
+    downloaded and emitted. Caps start from those learned for the shape.
+    Returns the streams in input order, byte-identical to
+    `encode_image`'s."""
     cfg = config or EncoderConfig()
     if batch_size < 1:
         raise ValueError(f"batch_size {batch_size} < 1")
+    devs = devices_of(device, devices)
+    if batch_size % len(devs):
+        raise ValueError(
+            f"encode_corpus(devices=...): batch_size {batch_size} must be "
+            f"a multiple of the {len(devs)} devices")
     imgs = _checked(images, cfg)
-    dev = device_of(device)
-    tables = device_tables(bank, dev)
     results: list = [None] * len(imgs)
     groups: dict = {}
     for i, im in enumerate(imgs):
         groups.setdefault(im.shape, []).append(i)
     inflight: deque = deque()
-
-    def drain_one():
-        job = inflight.popleft()
-        for i, st in zip(job.chunk, _drain_adaptive(job, cfg, tables,
-                                                    emit_workers)):
-            results[i] = st
-
     for shape, idxs in groups.items():
         h, w = shape[:2]
         if h * w > max_pix:
-            for i in idxs:
-                results[i] = encode_image_banded(imgs[i], bank, cfg, dev,
-                                                 max_pix=max_pix)
+            _banded_each(imgs, idxs, bank, cfg, devs, max_pix, results)
             continue
         key = (h, w, cfg.reject_factor)
         base_caps = pipeline.pass_caps(w, h, cap_frac, dcap_frac)
-        perms = pipeline.scan_perms(w, h, dev)
-        per = _per_dispatch(h, w, batch_size, max_pix)
-        for s in range(0, len(idxs), per):
-            chunk = idxs[s:s + per]
-            inflight.append(_dispatch_batch(
-                chunk, [imgs[i] for i in chunk], cfg, tables,
-                _CAP_STATE.get(key, base_caps), perms))
+        states = _device_states(bank, devs, w, h)
+        per = _per_dispatch(h, w, batch_size // len(devs), max_pix)
+        step = per * len(devs)
+        for s in range(0, len(idxs), step):
+            inflight.append(_dispatch_split(
+                pbatch.split(idxs[s:s + step], len(devs)), imgs, cfg, states,
+                _CAP_STATE.get(key, base_caps)))
             if len(inflight) > 1:
-                drain_one()
+                _drain_split(inflight.popleft(), cfg, emit_workers, results)
     while inflight:
-        drain_one()
+        _drain_split(inflight.popleft(), cfg, emit_workers, results)
     return results
 
 
@@ -367,4 +425,57 @@ def encode_image_banded(img, bank: bankmod.Bank,
                                         for j in range(5))
         t3.append({"shift": shift, "idx": idx, "mask": mask,
                    "accept": accept, "type": typ, "bbox": bbox})
+    return _Precomputed(grad_accepts, t3).emit(img, cfg)
+
+
+def encode_image_banded_mesh(img, bank: bankmod.Bank,
+                             config: EncoderConfig | None = None,
+                             devices: list | None = None) -> bytes:
+    """Encode one [h, w, 3|4] u8 image scored in one band per device of
+    `devices` (default `data_devices()`, every card), the JAX package's
+    `encode_image_banded_mesh`: n = len(devices) equal bands of bh =
+    ceil(h / n) rounded up to 16 rows, the bottom padded to n * bh + 1
+    rows by repeating the last row (the clamp the full image's scoring
+    applies at its edge), each band with its one-row halo. Band i is
+    scored densely on `devices[i]`; the bands' grids are joined and cut
+    back to the image's tile rows and emitted. Byte-identical to
+    `encode_image`. Heights that are not a multiple of 16 raise, as
+    there."""
+    cfg = config or EncoderConfig()
+    img = _checked([img], cfg)[0]
+    h, w = img.shape[:2]
+    if h % 16:
+        # partial bottom tile rows use ceil grid counts in emission, which
+        # the floor-count band grids cannot represent
+        raise ValueError("banded mesh encode requires height % 16 == 0")
+    devs = (pbatch.data_devices() if devices is None
+            else devices_of(CARD, devices))
+    n = len(devs)
+    bh = (-(-h // n) + 15) & ~15
+    src = img[:, :, :3]
+    padded = np.concatenate([src, np.repeat(src[-1:], n * bh + 1 - h,
+                                            axis=0)])
+
+    def score(band: np.ndarray, dev: torch.device) -> torch.Tensor:
+        planes = _upload([band], dev)
+        packed_g, claims = _score_gradients(planes, cfg)
+        return torch.cat([packed_g, pipeline._tile3d_all(
+            planes, claims, device_tables(bank, dev))], dim=1)
+
+    parts = pbatch.over_slices(score, [
+        (padded[i * bh:(i + 1) * bh + 1], d) for i, d in enumerate(devs)])
+    flat = np.concatenate([p.cpu().numpy() for p in parts])    # [n, L]
+    gb = _grad_packed_len(w, bh)
+    grad_accepts = [a.reshape(-1, a.shape[2])[:h >> sy] for a, (_, sy) in zip(
+        _split_gradients(flat[:, :gb], w, bh), swizzle.GRADIENT_PASS_ORDER)]
+    t3, off = [], gb
+    for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
+        P = (1 << sx) * (1 << sy)
+        n_rows = (bh >> sy) * (w >> sx)
+        rows = flat[:, off:off + n_rows * (P + 9)].reshape(-1, P + 9)
+        idx, mask, accept, typ, bbox = pipeline._unpack_pass(
+            rows[:(h >> sy) * (w >> sx)], P)
+        t3.append({"shift": (sx, sy), "idx": idx, "mask": mask,
+                   "accept": accept, "type": typ, "bbox": bbox})
+        off += n_rows * (P + 9)
     return _Precomputed(grad_accepts, t3).emit(img, cfg)

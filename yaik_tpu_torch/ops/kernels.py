@@ -27,7 +27,8 @@ Counterpart of `yaik_tpu/ops/pallas_kernels.py` for the device decode
 A wrapper runs the plain version for tensors on the CPU, launches its CUDA
 kernel on `torch.cuda.current_stream()` for tensors on a CUDA device, and
 raises for anything else: there is no fallback from a CUDA tensor. Each
-wrapper counts its kernel launches in its `launches` attribute.
+wrapper counts its kernel launches in its `launches` attribute, and those
+on each device in its `per_device` dict.
 
 The decode kernels take a batch of B same-size images in one launch (the
 counterpart of the JAX package's vmap over `decode_core`): `grad_plane`,
@@ -74,6 +75,13 @@ def _route(device: torch.device) -> bool:
     if device.type == "cpu":
         return False
     raise ValueError(f"no kernel for device {device}")
+
+
+def _count(fn, dev: torch.device) -> None:
+    """One launch of `fn`'s kernel on `dev`: one more in `fn.launches` and
+    in `fn.per_device[dev]`."""
+    fn.launches += 1
+    fn.per_device[dev] = fn.per_device.get(dev, 0) + 1
 
 
 # a batch is one grid axis of a launch
@@ -156,11 +164,12 @@ def grad_plane(corners: torch.Tensor, code4: torch.Tensor) -> torch.Tensor:
             out.data_ptr(), math.prod(lead), hq + 1, wq + 1, H, W,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_grad_plane")
-    grad_plane.launches += 1
+    _count(grad_plane, dev)
     return out
 
 
 grad_plane.launches = 0
+grad_plane.per_device = {}
 
 
 def grad_plane_final_plain(corners: torch.Tensor, code4: torch.Tensor,
@@ -196,11 +205,12 @@ def grad_plane_final(corners: torch.Tensor, code4: torch.Tensor,
             H, W,
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_grad_plane_final")
-    grad_plane_final.launches += 1
+    _count(grad_plane_final, dev)
     return out
 
 
 grad_plane_final.launches = 0
+grad_plane_final.per_device = {}
 
 
 def tile_to_image(v: torch.Tensor, nty: int, ntx: int) -> torch.Tensor:
@@ -336,7 +346,7 @@ def _merged(fn, name: str, tab: torch.Tensor, idx16: torch.Tensor,
             out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
-    fn.launches += 1
+    _count(fn, dev)
     return out
 
 
@@ -349,6 +359,7 @@ def t3_merged(tab: torch.Tensor, idx16: torch.Tensor, cols: torch.Tensor,
 
 
 t3_merged.launches = 0
+t3_merged.per_device = {}
 
 
 def t2_merged(tab: torch.Tensor, idx16: torch.Tensor, cols: torch.Tensor,
@@ -361,6 +372,7 @@ def t2_merged(tab: torch.Tensor, idx16: torch.Tensor, cols: torch.Tensor,
 
 
 t2_merged.launches = 0
+t2_merged.per_device = {}
 
 
 def t3_merged_d1_plain(tab: torch.Tensor, idx16: torch.Tensor,
@@ -419,11 +431,12 @@ def t3_merged_d1(tab: torch.Tensor, idx16: torch.Tensor, cols: torch.Tensor,
             out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_t3_merged_d1")
-    t3_merged_d1.launches += 1
+    _count(t3_merged_d1, dev)
     return out
 
 
 t3_merged_d1.launches = 0
+t3_merged_d1.per_device = {}
 
 
 def lut_pass_plain(tab: torch.Tensor, packed: torch.Tensor,
@@ -490,11 +503,12 @@ def lut_pass(tab: torch.Tensor, packed: torch.Tensor, cols: torch.Tensor,
             th.bit_length() - 1, tw.bit_length() - 1, H, W, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_lut_pass")
-    lut_pass.launches += 1
+    _count(lut_pass, dev)
     return out
 
 
 lut_pass.launches = 0
+lut_pass.per_device = {}
 
 
 # pixels per chunk of the plain versions: bounds their [pixels, E*48*8]
@@ -560,7 +574,7 @@ def _score(fn, name: str, plain, c: torch.Tensor, alive: torch.Tensor,
             c.data_ptr(), alive.data_ptr(), qpts.data_ptr(), T, P, E,
             out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, name)
-    fn.launches += 1
+    _count(fn, dev)
     return out
 
 
@@ -573,6 +587,7 @@ def score48(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
 
 
 score48.launches = 0
+score48.per_device = {}
 
 
 def score48_mode(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
@@ -585,6 +600,7 @@ def score48_mode(c: torch.Tensor, alive: torch.Tensor, qpts: torch.Tensor
 
 
 score48_mode.launches = 0
+score48_mode.per_device = {}
 
 # values48's four bit-depth windows: (step into pts, points); window bi
 # takes factors[3 - bi]
@@ -710,11 +726,12 @@ def values48(tiles: torch.Tensor, alive: torch.Tensor, a_c: torch.Tensor,
             E, accept.data_ptr(), tile_type.data_ptr(), idx.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_values48")
-    values48.launches += 1
+    _count(values48, dev)
     return accept, tile_type, idx
 
 
 values48.launches = 0
+values48.per_device = {}
 
 
 # (candidates, tiles) per chunk of the covers plain versions: bounds their
@@ -805,7 +822,7 @@ def _covers(fn, D: int, cands, cmask, tiles, tmask, gate: int
             n, gate, out.data_ptr(),
             torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, "yaik_covers")
-    fn.launches += 1
+    _count(fn, dev)
     return out
 
 
@@ -817,6 +834,7 @@ def covers(cands: torch.Tensor, tiles: torch.Tensor, gate_px: int = 75
 
 
 covers.launches = 0
+covers.per_device = {}
 
 
 def covers2d(cands: torch.Tensor, cand_mask: torch.Tensor,
@@ -828,3 +846,4 @@ def covers2d(cands: torch.Tensor, cand_mask: torch.Tensor,
 
 
 covers2d.launches = 0
+covers2d.per_device = {}

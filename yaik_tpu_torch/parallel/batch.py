@@ -1,4 +1,4 @@
-"""Batch, spatial and corpus decode on one card: the counterpart of
+"""Batch, spatial and corpus decode: the counterpart of
 `yaik_tpu/parallel/batch.py`.
 
 - `decode_batch` decodes same-size streams as one device step. The JAX
@@ -20,11 +20,28 @@ they share one alpha spec, else it is decoded on the host and attached
 after; mixing sizes, or streams with and without an overlay, plane
 gradients or 2DTL raises ValueError, as there, and so does alpha beside
 no alpha in `decode_batch` (`decode_corpus` takes that batch, as the JAX
-package's does). Sharding over several cards (the JAX package's `mesh=`
-and `data_mesh`) is not ported.
+package's does).
 
-There is no fallback: "cuda" without a GPU raises, and a kernel that fails
-to build or launch raises.
+Sharding over several devices, the JAX package's `mesh=` over a "data"
+axis: each entry point takes `devices=`, a list of torch devices in the
+mesh's place (`data_devices(n)` lists the first n cards, as `data_mesh(n)`
+makes a mesh of the first n devices). The forms are chosen over the whole
+batch first, as the JAX package chooses them before it shards; then the
+batch's streams (or bands) are split into `len(devices)` equal slices,
+slice i is stacked, uploaded and decoded on `devices[i]`, and the
+slices' pixels come back to the host by their own `.cpu()` and are
+joined in order. As there, no collective is needed: no tensor of one
+device is read on another. A list may name one device more than once;
+its slices then run one after another on it. Where the JAX package's
+sharding refuses a split, the port raises ValueError: a `decode_batch`
+whose size the device count does not divide, `decode_spatial` bands that
+are unequal or that it does not divide, a `decode_corpus` batch_size
+that it does not divide (a short last batch is not padded: its slices
+differ by at most one stream). `device=` beside `devices=` raises.
+
+There is no fallback: "cuda" without a GPU raises, a kernel that fails
+to build or launch raises, and a slice that fails raises and is not
+moved to another device.
 """
 from __future__ import annotations
 
@@ -38,18 +55,48 @@ import torch
 from yaik_tpu_torch.decoder import api, engine, pack
 from yaik_tpu_torch.decoder import planner as plannermod
 
-__all__ = ["decode_batch", "split_plan_bands", "decode_spatial",
-           "decode_corpus"]
+__all__ = ["data_devices", "decode_batch", "split_plan_bands",
+           "decode_spatial", "decode_corpus"]
 
 
-def batch_operands(plans: list, tables: engine.Tables, args: list | None = None
-                   ) -> tuple:
-    """(one stacked `pack.DecodeArgs`, whether alpha is left to the host)
-    for `plans` of same-size streams; `args` are their `plan_to_args`, when
-    packed already. Alpha stays on the card when every stream has it and
-    all share one alpha spec (JAX: `_common_alpha_spec`, where no alpha is
-    a spec of its own); else every stream decodes RGB on the card and
-    `with_host_alpha` attaches the host's alpha to those that have it."""
+def data_devices(n: int | None = None) -> list[torch.device]:
+    """The first `n` cards (default: every card present) as the
+    `devices=` of the entry points: the counterpart of `data_mesh`. Raises
+    when fewer cards are present than asked for; it never lists the CPU
+    or a card twice in their place."""
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    n = have if n is None else n
+    if not 1 <= n <= have:
+        raise RuntimeError(f"data_devices({n}): {have} CUDA devices "
+                           "present")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def split(items: list, n: int) -> list[list]:
+    """`items` in at most `n` consecutive slices, in order, whose sizes
+    differ by at most one; no slice is empty."""
+    q, r = divmod(len(items), n)
+    starts = [i * q + min(i, r) for i in range(n + 1)]
+    return [items[a:b] for a, b in zip(starts, starts[1:]) if b > a]
+
+
+def over_slices(fn, jobs: list) -> list:
+    """`[fn(*job) for job in jobs]`: the slices of a split dispatched one
+    after another from the calling thread, while the devices run those
+    queued before. (A thread a slice measured slower on an H100's host,
+    PERF.md §6; chip_smoke.py swaps it in here to time it.)"""
+    return [fn(*job) for job in jobs]
+
+
+def batch_forms(plans: list, tables: engine.Tables, args: list | None = None
+                ) -> tuple:
+    """(each stream's `pack.DecodeArgs` in forms the batch shares, whether
+    alpha is left to the host) for `plans` of same-size streams; `args` are
+    their `plan_to_args`, when packed already. Alpha stays on the card when
+    every stream has it and all share one alpha spec (JAX:
+    `_common_alpha_spec`, where no alpha is a spec of its own); else every
+    stream decodes RGB on the card and `with_host_alpha` attaches the
+    host's alpha to those that have it."""
     w, h = plans[0].width, plans[0].height
     if any(p.width != w or p.height != h for p in plans):
         raise ValueError("decode_batch requires same-sized streams")
@@ -59,6 +106,14 @@ def batch_operands(plans: list, tables: engine.Tables, args: list | None = None
     host_alpha = len({a.alpha.spec if a.alpha else None for a in args}) > 1
     if host_alpha:
         args = [dataclasses.replace(a, alpha=None) for a in args]
+    return args, host_alpha
+
+
+def batch_operands(plans: list, tables: engine.Tables, args: list | None = None
+                   ) -> tuple:
+    """(`batch_forms`'s args stacked into one `pack.DecodeArgs`, whether
+    alpha is left to the host)."""
+    args, host_alpha = batch_forms(plans, tables, args)
     return pack.stack_args(args), host_alpha
 
 
@@ -71,26 +126,62 @@ def with_host_alpha(rgb: np.ndarray, plan: plannermod.DecodePlan,
     return np.concatenate([rgb, plan.host_alpha()[:, :, None]], axis=2)
 
 
-def _decode(plans: list, tables: engine.Tables, flags: dict,
-            args: list | None = None) -> np.ndarray:
-    """One batch, synchronously: [B, H, W, 3|4] u8."""
-    batched, host_alpha = batch_operands(plans, tables, args)
-    out = engine.decode_core(engine.upload(batched, tables.tab.device),
-                             tables, **flags).cpu().numpy()
+def _tables(lut, device, devices) -> tuple:
+    """(the bank of `lut`, its `engine.Tables` on each device the call
+    runs on)."""
+    devs = engine.devices_of(device, devices)
+    bank = api.bank_of(lut)
+    return bank, [api._TABLES.get(bank, d) for d in devs]
+
+
+def _decode_slice(args: list, tables: engine.Tables, flags: dict
+                  ) -> torch.Tensor:
+    """Stack, upload and queue the decode of one slice on its tables'
+    device; returns before the device has finished."""
+    return engine.decode_core(engine.upload(pack.stack_args(args),
+                                            tables.tab.device),
+                              tables, **flags)
+
+
+def _dispatch_split(plans: list, tables: list, flags: dict,
+                    args: list | None = None) -> tuple:
+    """Queue the decode of one batch split over the devices of `tables`
+    (an `engine.Tables` each): (each slice's pixels on its device, whether
+    alpha is left to the host)."""
+    args, host_alpha = batch_forms(plans, tables[0], args)
+    jobs = [(a, t, flags) for a, t in zip(split(args, len(tables)), tables)]
+    return over_slices(_decode_slice, jobs), host_alpha
+
+
+def _join(parts: list, plans: list, host_alpha: bool) -> np.ndarray:
+    """The slices' pixels on the host, in order: [B, H, W, 3|4] u8 (each
+    `.cpu()` waits for its device)."""
+    out = np.concatenate([p.cpu().numpy() for p in parts])
     if not host_alpha:
         return out
     return np.stack([with_host_alpha(o, p, True) for o, p in zip(out, plans)])
 
 
-def decode_batch(streams: list, lut, device="cuda", t3_d1: bool = False,
-                 grad_final: bool = False) -> np.ndarray:
+def _decode(plans: list, tables: list, flags: dict, args: list | None = None
+            ) -> np.ndarray:
+    """One batch split over the devices of `tables`, synchronously."""
+    parts, host_alpha = _dispatch_split(plans, tables, flags, args)
+    return _join(parts, plans, host_alpha)
+
+
+def decode_batch(streams: list, lut, device=engine.CARD, t3_d1: bool = False,
+                 grad_final: bool = False, devices: list | None = None
+                 ) -> np.ndarray:
     """Decode same-size streams as one batch on `device` (the card unless
-    the caller asks for "cpu"): [B, h, w, 3] u8, or [B, h, w, 4] when the
-    streams carry alpha. `lut` takes what `decode_image` takes; `t3_d1`
-    and `grad_final` choose the fused forms (`engine.decode_core`)."""
-    dev = engine.device_of(device)
-    bank = api.bank_of(lut)
-    tables = api._TABLES.get(bank, dev)
+    the caller asks for "cpu"), or split over `devices`: [B, h, w, 3] u8,
+    or [B, h, w, 4] when the streams carry alpha. `lut` takes what
+    `decode_image` takes; `t3_d1` and `grad_final` choose the fused forms
+    (`engine.decode_core`)."""
+    bank, tables = _tables(lut, device, devices)
+    if len(streams) % len(tables):
+        raise ValueError(f"decode_batch over {len(tables)} devices: the "
+                         f"batch of {len(streams)} does not split into "
+                         "equal slices")
     plans = [plannermod.build_plan(s, bank.expanded, bank.expanded2d)
              for s in streams]
     withalpha = [p.has_alpha for p in plans]
@@ -160,26 +251,36 @@ def split_plan_bands(plan: plannermod.DecodePlan, n_bands: int) -> list:
     return bands
 
 
-def decode_spatial(stream: bytes, lut, device="cuda",
+def decode_spatial(stream: bytes, lut, device=engine.CARD,
                    n_bands: int | None = None, t3_d1: bool = False,
-                   grad_final: bool = False) -> np.ndarray:
-    """Decode ONE image in `n_bands` horizontal bands (default 1, the JAX
-    package's one band per device on one card): the equal bands as one
-    batch, a shorter last band on its own. Returns [h, w, 3] u8 ([h, w, 4]
-    with alpha, decoded on the host from the full plan), pixel-equal to
-    `decode_image`."""
-    dev = engine.device_of(device)
-    bank = api.bank_of(lut)
-    tables = api._TABLES.get(bank, dev)
+                   grad_final: bool = False, devices: list | None = None
+                   ) -> np.ndarray:
+    """Decode ONE image in `n_bands` horizontal bands (default one per
+    device: 1 on `device`, `len(devices)` over `devices`): the equal bands
+    as one batch, a shorter last band on its own; over `devices` the bands
+    must be equal, and split over the devices. Returns [h, w, 3] u8
+    ([h, w, 4] with alpha, decoded on the host from the full plan),
+    pixel-equal to `decode_image`."""
+    bank, tables = _tables(lut, device, devices)
     plan = plannermod.build_plan(stream, bank.expanded, bank.expanded2d)
-    bands = split_plan_bands(plan, n_bands or 1)
+    n = n_bands or len(tables)
+    bands = split_plan_bands(plan, n)
+    if devices is not None and len({b.height for b in bands}) != 1:
+        raise ValueError(
+            "mesh-sharded spatial decode needs equal bands: image height "
+            f"{plan.height} does not split into {n} equal 16px-multiple "
+            "bands (drop devices= or pick a dividing n_bands)")
+    if len(bands) % len(tables):
+        raise ValueError(f"decode_spatial over {len(tables)} devices: "
+                         f"{len(bands)} bands do not split into equal "
+                         "slices")
     flags = dict(t3_d1=t3_d1, grad_final=grad_final)
     parts = []
     for _, group in itertools.groupby(bands, key=lambda b: b.height):
         group = list(group)
         # bands carry no alpha; one band is the plan itself, alpha dropped
         args = [dataclasses.replace(pack.plan_to_args(
-            b, tables.lut, tables.lut2), alpha=None) for b in group]
+            b, tables[0].lut, tables[0].lut2), alpha=None) for b in group]
         out = _decode(group, tables, flags, args)
         parts.append(out.reshape(-1, *out.shape[2:]))
     rgb = np.concatenate(parts, axis=0)
@@ -190,34 +291,34 @@ def decode_spatial(stream: bytes, lut, device="cuda",
 
 @dataclasses.dataclass
 class _InFlight:
-    """A dispatched batch: its streams' indices and plans, and its pixels
-    on the device, where the card may still be writing them."""
+    """A dispatched batch: its streams' indices and plans, and its slices'
+    pixels on their devices, where the devices may still be writing
+    them."""
     chunk: list
     plans: list
-    pixels: torch.Tensor
+    parts: list
     host_alpha: bool
 
 
 def _dispatch(chunk, plans_args, tables, flags) -> _InFlight:
-    """Stack, upload and queue the decode of one batch; returns before the
-    card has finished."""
+    """Stack, upload and queue the decode of one batch, split over the
+    devices of `tables`; returns before the devices have finished."""
     plans = [p for p, _ in plans_args]
-    batched, host_alpha = batch_operands(plans, tables,
-                                         [a for _, a in plans_args])
-    out = engine.decode_core(engine.upload(batched, tables.tab.device),
-                             tables, **flags)
-    return _InFlight(chunk, plans, out, host_alpha)
+    parts, host_alpha = _dispatch_split(plans, tables, flags,
+                                        [a for _, a in plans_args])
+    return _InFlight(chunk, plans, parts, host_alpha)
 
 
 def _drain(job: _InFlight, results: list) -> None:
-    pixels = job.pixels.cpu().numpy()    # waits for the card
+    pixels = np.concatenate([p.cpu().numpy() for p in job.parts])  # waits
     for j, i in enumerate(job.chunk):
         results[i] = with_host_alpha(pixels[j], job.plans[j], job.host_alpha)
 
 
 def decode_corpus(streams: list, lut, batch_size: int = 8,
-                  planner_workers: int = 1, device="cuda",
-                  t3_d1: bool = False, grad_final: bool = False) -> list:
+                  planner_workers: int = 1, device=engine.CARD,
+                  t3_d1: bool = False, grad_final: bool = False,
+                  devices: list | None = None) -> list:
     """Pipelined decode of a corpus: the streams grouped by the size in
     their headers, decoded in batches of up to `batch_size` (a short last
     batch is not padded), while the host plans and packs the next batch
@@ -226,18 +327,21 @@ def decode_corpus(streams: list, lut, batch_size: int = 8,
     threads measured no faster than one (PERF.md). Returns each stream's
     [h, w, 3|4] u8 pixels in input order, equal to `decode_image`'s. A
     batch may mix alpha with no alpha, or alpha specs: it then decodes RGB
-    on the card and attaches the host's alpha, as the JAX package does."""
+    on the card and attaches the host's alpha, as the JAX package does.
+    Over `devices`, each batch is split over them, and every slice of
+    batch k+1 is queued before batch k is downloaded."""
     if batch_size < 1:
         raise ValueError(f"batch_size {batch_size} < 1")
-    dev = engine.device_of(device)
-    bank = api.bank_of(lut)
-    tables = api._TABLES.get(bank, dev)
+    bank, tables = _tables(lut, device, devices)
+    if batch_size % len(tables):
+        raise ValueError(f"batch_size {batch_size} must be a multiple of "
+                         f"the {len(tables)} devices")
     flags = dict(t3_d1=t3_d1, grad_final=grad_final)
 
     def plan_and_pack(i):
         plan = plannermod.build_plan(streams[i], bank.expanded,
                                      bank.expanded2d)
-        return plan, pack.plan_to_args(plan, tables.lut, tables.lut2)
+        return plan, pack.plan_to_args(plan, tables[0].lut, tables[0].lut2)
 
     groups: dict = {}                # size from the header alone
     for i, s in enumerate(streams):
