@@ -74,9 +74,13 @@ counting each kernel's launches against what the operands call for:
 - LUT-bank mining through `yaik_tpu_torch.encoder.mining`: `mine_bank` of
   img512 and img512b and `mine_bank2d` of corr2d128 and img128 on the card,
   one `covers` and one `covers2d` launch each, files equal to the
-  `device="cpu"` run's. `covers` and `covers2d` are held against their
-  plain versions at corpus scale (k = 256 candidates, n = 50,000 seeded
-  clouds) and timed there.
+  `device="cpu"` run's, with the live-point and counted-pixel shares of
+  the clouds `mine_bank2d` captured. `covers` and `covers2d` are held
+  against their plain versions at corpus scale (k = 256 candidates, n =
+  50,000 seeded clouds, whose shares are printed beside) and timed there,
+  `covers2d` also on tests/torch_covers.py's edge operands (empty and full
+  candidates and tiles, interleaved slots, i32 coordinates up to 4096,
+  every gate).
 - the command line, `python -m yaik_tpu_torch`, in subprocesses from the
   checkout's root on the card: `encode --profile --stats` of img512, the
   2048x2048 sheet and the 3840x2160 image, each stream equal to
@@ -349,6 +353,7 @@ def main() -> int:
     # -- phase 1: the card, the host library and the kernel build ----------
     import yaik_tpu_torch
     from PIL import Image
+    import torch_covers
     from torch_streams import (craft_t3_stream, d1_operands, digest,
                                synth_t2_pass)
     from yaik_tpu_torch import native
@@ -783,22 +788,28 @@ def main() -> int:
     # at corpus scale, on seeded clouds: 3D tiles near the candidates (so
     # some are covered), 2D point sets of 1..64 points -------------------
     from yaik_tpu_torch.encoder import mining
-    crng = np.random.default_rng(8)
-    cands = crng.integers(0, 64, (K_MINE, 64, 3)).astype(np.uint8)
-    near = cands[crng.integers(0, K_MINE, N_MINE)].astype(np.int32)
-    tiles = np.clip(near + crng.integers(-6, 7, (N_MINE, 64, 3)), 0, 63)
-    sets = [np.unique(crng.integers(0, 64, (int(m), 2)), axis=0)[:64]
-            for m in crng.integers(1, 65, N_MINE)]
-    cover_args = {
-        "covers": tuple(torch.from_numpy(a).to(dev)
-                        for a in (cands, tiles.astype(np.uint8))),
-        "covers2d": tuple(torch.from_numpy(a).to(dev) for a in (
-            *mining._padded(sets[:K_MINE]), *mining._padded(sets)))}
+    cover_args = {name: tuple(torch.from_numpy(a).to(dev) for a in arrs)
+                  for name, arrs in torch_covers.corpus(K_MINE,
+                                                        N_MINE).items()}
     for name, a in cover_args.items():
         got = check(name, f"k = {K_MINE}, n = {N_MINE} seeded clouds", *a)
         print(f"  {name}: {int(got.sum())} of {got.numel()} (candidate, "
               "tile) pairs covered")
-    del cands, near, tiles, sets
+    print("  covers2d operands: live-point share %.4f, counted-pixel share "
+          "%.4f" % torch_covers.shares(*(x.cpu().numpy() for x in
+                                         cover_args["covers2d"][1::2])))
+    # covers2d on tests/torch_covers.py's edge operands: empty and full
+    # candidates and tiles, tiles of 0..6 pixels, interleaved slots with
+    # arbitrary pad values, i32 coordinates up to 4096; every gate on both
+    # of the kernel's routes; k and n of 1 and past the blocks' shapes
+    edge = [(33, 4097, case, 36) for case in torch_covers.CASES]
+    edge += [(33, 130, case, gate) for case in ("seeded", "wide")
+             for gate in torch_covers.GATES]
+    edge += [(257, 1, case, 36) for case in ("seeded", "empty_tiles")]
+    for k, n, case, gate in edge:
+        a = [torch.from_numpy(x).to(dev)
+             for x in torch_covers.operands(case, k, n, k + n)]
+        check("covers2d", f"{case} k = {k}, n = {n}, gate {gate}", *a, gate)
 
     lap("3")
     # -- phase 3: the standard decode, split and fused, through the user's
@@ -1362,6 +1373,14 @@ def main() -> int:
     print(f"launches in mine_bank (img512, img512b) and mine_bank2d "
           f"(corr2d128, img128) on the card ({mine_s:.2f} s): "
           f"{ {n: launches[n] for n in MINE_KERNELS} }")
+    # the operands mine_bank2d handed covers2d (its clouds and every
+    # step-th one as a candidate), against phase 2e's seeded mix
+    clouds2 = [c for im in mine2 for c in mining.capture_clouds_2d(im)]
+    cands2 = clouds2[::max(1, len(clouds2) // 256)]
+    print("covers2d operands of mine_bank2d's captures (%d candidates, %d "
+          "clouds): live-point share %.4f, counted-pixel share %.4f" % (
+              len(cands2), len(clouds2), *torch_covers.shares(
+                  mining._padded(cands2)[1], mining._padded(clouds2)[1])))
     if any(launches[n] != 1 for n in MINE_KERNELS):
         raise AssertionError("mining does not launch covers and covers2d "
                              "once per evaluation")
@@ -2433,8 +2452,11 @@ def main() -> int:
     # the coverage kernels at corpus scale (phase 2e's operands), with the
     # bound of the distances the data needs: 3D every pixel against every
     # point, 9 int32 operations each (3 sub, 3 mul, 2 add, 1 min); 2D the
-    # real points of each candidate against the counted pixels of each
-    # tile, 6 each (2 sub, 2 mul, 1 add, 1 min)
+    # live points of each candidate against the counted pixels of each
+    # tile, in the arithmetic the kernel takes for these u8 points: one
+    # dp2a (2 multiply-adds) and a min, 5 operations at the CUDA cores'
+    # peak (the float32 one; no dp2a rate is published), with the int32
+    # bound (2 sub, 2 mul, 1 add, 1 min at the int32 rate) beside it
     for name, a in cover_args.items():
         fn = getattr(kernels, name)
         plain = getattr(kernels, f"{name}_plain")
@@ -2443,18 +2465,26 @@ def main() -> int:
         k2 = cuda_ms(lambda: fn(*a), 10)
         p2 = cuda_ms(lambda: plain(*a), 1, queued=False, warm=False)
         out = fn(*a)
-        if name == "covers":
-            ops = a[0].shape[0] * a[1].shape[0] * 64 * 64 * 9
-        else:
-            ops = float(a[1].sum()) * float(a[3].sum()) * 6
         kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
-        bounds[name] = bound(list(a), [out], ops, "i32")
+        if name == "covers":
+            ops = {"i32": a[0].shape[0] * a[1].shape[0] * 64 * 64 * 9}
+        else:
+            dist = float(a[1].sum()) * float(a[3].sum())
+            ops = {"f32": dist * 5, "i32": dist * 6}
+        each = {kind: bound(list(a), [out], n_ops, kind)
+                for kind, n_ops in ops.items()}
+        # the share against the bound of the arithmetic the kernel runs;
+        # the int32 bound of a kernel that runs none is stated bare
+        bounds[name] = next(iter(each.values()))
+        shares = "; ".join(
+            f"{kind}-peak bound {b:.4f} ms ({by}, {ops[kind]:.4g} "
+            "operations)" + (f", {b / kms[name][0]:.0%} of it" if i == 0
+                             else "")
+            for i, (kind, (b, by)) in enumerate(each.items()))
         print(f"time {name} k = {K_MINE}, n = {N_MINE}: kernel {k1:.4f} / "
               f"{k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms (plain, kernel, "
-              f"kernel, plain); bound {bounds[name][0]:.4f} ms "
-              f"({bounds[name][1]}, {ops:.4g} int32 operations), "
-              f"{bounds[name][0] / kms[name][0]:.0%} of it; launches per "
-              f"evaluation {launches[name]} [{card}]")
+              f"kernel, plain); {shares}; launches per evaluation "
+              f"{launches[name]} [{card}]")
 
     lap("end")
     print(card)

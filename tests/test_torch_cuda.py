@@ -17,6 +17,7 @@ import torch
 from PIL import Image
 
 import yaik_tpu_torch
+import torch_covers
 from torch_streams import craft_t3_stream, d1_operands
 from yaik_tpu.decoder import planner as plannermod
 from yaik_tpu.decoder import reference as refdec
@@ -499,25 +500,18 @@ def test_encode_batch_cuda_matches_cpu(cuda, bank3d):
                                      band_rows=48) == want[1]
 
 
-def _cover_operands(k, n, D, seed):
-    """k candidate point sets and n tiles near them; for D = 2 padded sets
-    of 1..64 points with their masks (mining._padded)."""
-    from yaik_tpu_torch.encoder import mining
+def _cover_operands(k, n, seed):
+    """k candidate clouds and n tiles near them (so some are covered)."""
     rng = np.random.default_rng(seed)
-    if D == 3:
-        cands = rng.integers(0, 64, (k, 64, 3)).astype(np.uint8)
-        near = cands[rng.integers(0, k, n)].astype(np.int32)
-        tiles = np.clip(near + rng.integers(-6, 7, (n, 64, 3)), 0, 63)
-        return [torch.from_numpy(a) for a in (cands, tiles.astype(np.uint8))]
-    sets = [np.unique(rng.integers(0, 64, (int(rng.integers(1, 65)), 2)),
-                      axis=0)[:64] for _ in range(n)]
-    return [torch.from_numpy(a) for a in (*mining._padded(sets[:k]),
-                                          *mining._padded(sets))]
+    cands = rng.integers(0, 64, (k, 64, 3)).astype(np.uint8)
+    near = cands[rng.integers(0, k, n)].astype(np.int32)
+    tiles = np.clip(near + rng.integers(-6, 7, (n, 64, 3)), 0, 63)
+    return [torch.from_numpy(a) for a in (cands, tiles.astype(np.uint8))]
 
 
 @pytest.mark.parametrize("k,n", [(1, 1), (33, 130), (256, 5000)])
 def test_covers_kernel_vs_plain(cuda, k, n):
-    c, t = _cover_operands(k, n, 3, k + n)
+    c, t = _cover_operands(k, n, k + n)
     before = kernels.covers.launches
     got = kernels.covers(c.to(cuda), t.to(cuda), 75)
     torch.cuda.synchronize()
@@ -527,22 +521,58 @@ def test_covers_kernel_vs_plain(cuda, k, n):
     assert torch.equal(got.cpu(), kernels.covers_plain(c, t, 75))
 
 
-@pytest.mark.parametrize("k,n", [(1, 1), (33, 130), (256, 5000)])
-@pytest.mark.parametrize("scatter", [False, True])
-def test_covers2d_kernel_vs_plain(cuda, k, n, scatter):
-    """`scatter` shuffles each set's points along its 64 slots, so live
-    and pad points interleave in both halves of a candidate."""
-    ops = _cover_operands(k, n, 2, k + n)
-    if scatter:
-        g = torch.Generator().manual_seed(k)
-        for i in (0, 2):
-            perm = torch.argsort(torch.rand(ops[i].shape[:2], generator=g),
-                                 dim=1)
-            ops[i] = torch.gather(ops[i], 1, perm[..., None].expand(-1, -1, 2))
-            ops[i + 1] = torch.gather(ops[i + 1], 1, perm)
-    got = kernels.covers2d(*(a.to(cuda) for a in ops))
+# (k, n, case, gate): the seeded sets (phase 2e's kind) and interleaved
+# slots at three sizes; each edge case of tests/torch_covers.py at a k
+# and n past the blocks' shapes; every gate on the kernel's dp2a and
+# int32 routes; k and n of 1 beside sizes that are no multiple of a block's
+COVERS2D_CASES = (
+    [(k, n, case, 36) for case in ("seeded", "scatter")
+     for k, n in ((1, 1), (33, 130), (256, 5000))]
+    + [(33, 4097, case, 36) for case in torch_covers.CASES]
+    + [(33, 130, case, gate) for case in ("seeded", "wide")
+       for gate in torch_covers.GATES]
+    + [(257, 1, case, 36) for case in ("seeded", "empty_tiles", "wide")]
+    + [(33, 4097, "tiny_tiles", gate) for gate in (0, 2 ** 31 - 1)])
+
+
+@pytest.mark.parametrize("k,n,case,gate", COVERS2D_CASES)
+def test_covers2d_kernel_vs_plain(cuda, k, n, case, gate):
+    """The kernel bit for bit against the plain version (tests/
+    torch_covers.py's cases: empty and full candidates and tiles, tiles
+    of 0..2 pixels, interleaved live and pad slots with arbitrary pad
+    values, i32 coordinates up to 4096), as i32 and, where every live
+    coordinate fits, as u8 operands."""
+    ops = [torch.from_numpy(a) for a in torch_covers.operands(
+        case, k, n, k + n)]
+    want = kernels.covers2d_plain(*(a.to(cuda) for a in ops), gate=gate)
+    before = kernels.covers2d.launches
+    got = kernels.covers2d(*(a.to(cuda) for a in ops), gate=gate)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), kernels.covers2d_plain(*ops))
+    assert kernels.covers2d.launches == before + 1
+    assert torch.equal(got, want)
+    if case != "wide":
+        u8 = [a.to(cuda, torch.uint8) if a.dtype == torch.int32 else
+              a.to(cuda) for a in ops]
+        assert torch.equal(kernels.covers2d(*u8, gate=gate), want)
+
+
+def test_covers2d_kernel_takes_unaligned_views(cuda):
+    """Contiguous views that start off the kernel's 8- and 16-byte loads
+    (the wrapper copies them) give the plain version's matrix."""
+    ops = [torch.from_numpy(a).to(cuda)
+           for a in torch_covers.operands("seeded", 33, 130, 1)]
+
+    def shifted(a, by):
+        buf = torch.zeros(a.numel() + by, dtype=a.dtype, device=cuda)
+        view = buf[by:].view(a.shape)
+        view.copy_(a)
+        return view
+    views = [shifted(ops[0], 1), ops[1], shifted(ops[2], 1),
+             shifted(ops[3], 3)]
+    assert all(v.is_contiguous() for v in views)
+    assert views[3].data_ptr() % 16 and views[2].data_ptr() % 8
+    assert torch.equal(kernels.covers2d(*views),
+                       kernels.covers2d_plain(*ops))
 
 
 def test_encode_rgba_and_passes_cuda_matches_cpu(cuda, bank3d):

@@ -9,6 +9,10 @@ and through the plain versions with their chunks forced small so that
 every chunk edge is crossed; then `mine_bank` (with its checkpoint) and
 `mine_bank2d` output files against the JAX package's `engine="device"`
 files, byte for byte. The arithmetic is integer, so every comparison is exact.
+The 2D plain version also meets `_covers2d_device` on tests/torch_covers.py's
+edge operands, and the 2D kernel's batch plan (`kernels.covers2d_plan`) is
+held to its definition and, through a numpy model of the kernel's walk over
+its batches, to the plain version.
 
 tests/test_torch_cuda.py holds the CUDA kernel to the plain versions on
 the card.
@@ -22,6 +26,7 @@ import pytest
 import torch
 from PIL import Image
 
+import torch_covers
 from yaik_tpu.encoder import mining as jmining
 from yaik_tpu_torch.encoder import mining
 from yaik_tpu_torch.ops import kernels
@@ -92,6 +97,105 @@ def test_covers2d_equals_the_jax_package(m, chunk):
     assert 0 < want.sum() < want.size
 
 
+@pytest.mark.parametrize("case,gate", [
+    *((case, 36) for case in torch_covers.CASES),
+    *(("seeded", gate) for gate in torch_covers.GATES[1:]),
+    ("wide", 2 ** 20)])
+def test_covers2d_edges_equal_the_jax_package(case, gate):
+    """Empty and full candidates and tiles, tiles of 0..2 pixels,
+    interleaved live and pad slots (the JAX package takes their sets),
+    i32 coordinates up to 4096, and every gate of tests/torch_covers.py."""
+    ops = torch_covers.operands(case, 11, 41, 5)
+    want = jmining._covers2d_device(torch_covers.sets_of(*ops[:2]),
+                                    torch_covers.sets_of(*ops[2:]), gate)
+    got = kernels.covers2d(*(torch.from_numpy(a) for a in ops), gate=gate)
+    assert np.array_equal(got.numpy(), want)
+    if case == "seeded" and gate == 36:
+        assert 0 < want.sum() < want.size
+
+
+@pytest.mark.parametrize("case", torch_covers.CASES)
+@pytest.mark.parametrize("cap", [64, 512])
+def test_covers2d_plan(case, cap):
+    """Each tile's start in the stream of counted pixels, and each batch's
+    first tile."""
+    tmask = torch_covers.operands(case, 1, 300, 3)[3]
+    if case == "empty_tiles":
+        tmask[-5:] = False                     # empty tiles at the end too
+    starts = np.concatenate([[0], np.cumsum(tmask.sum(1))])
+    nb = 300 * 64 // cap + 1
+    st, tf = kernels.covers2d_plan(torch.from_numpy(tmask), cap)
+    assert st.dtype == tf.dtype == torch.int32
+    assert np.array_equal(st.numpy(), starts)
+    assert np.array_equal(tf.numpy(), np.searchsorted(
+        starts[:-1], np.arange(nb + 1) * cap, side="left"))
+    with pytest.raises(ValueError, match="cap"):
+        kernels.covers2d_plan(torch.from_numpy(tmask), 63)
+
+
+def _kernel_walk(cands, cmask, tiles, tmask, gate, cap):
+    """csrc/covers.cu's 2D walk in numpy over covers2d_plan's batches:
+    batch b takes the slots [b * cap, (b + 1) * cap) of the stream of
+    counted pixels, the tiles that start there and the one that runs in,
+    a slot's pixel found by its rank among its tile's counted pixels; a
+    tile crossing a batch edge is counted in two parts that meet in a
+    counter. Each entry must be written exactly once."""
+    starts, tfirst = (x.numpy().astype(np.int64) for x in
+                      kernels.covers2d_plan(torch.from_numpy(tmask), cap))
+    k, n = len(cands), len(tiles)
+    total, nb = starts[n], len(tfirst) - 1
+    out = np.zeros((k, n), bool)
+    writes = np.zeros((k, n), int)
+    counter = np.zeros((k, nb), np.int64)
+    for b in range(nb):
+        lo = b * cap
+        if lo > total:
+            break
+        hi = min(lo + cap, total)
+        ta, tz = tfirst[b], tfirst[b + 1]
+        if ta > 0 and starts[ta] > lo:
+            ta -= 1
+        px = np.zeros((cap, 2), np.int64)
+        for t in range(ta, tz):
+            ranks = np.flatnonzero(tmask[t])
+            for s in range(max(starts[t], lo), min(starts[t + 1], hi)):
+                px[s - lo] = tiles[t, ranks[s - starts[t]]]
+        for c in range(k):
+            live = cands[c][cmask[c]].astype(np.int64)
+            d = (((px[:, None] - live[None]) ** 2).sum(-1).min(-1)
+                 if len(live) else np.full(cap, np.inf))
+            viol = d > gate
+            if len(live) < 64:              # the pad point beside them
+                viol &= ((4096 - px) ** 2).sum(-1) > gate
+            for t in range(ta, tz):
+                st, en = starts[t], starts[t + 1]
+                cnt = int(viol[max(st, lo) - lo:min(en, hi) - lo].sum())
+                if st < lo or en > hi:
+                    edge = b - 1 if st < lo else b
+                    old = counter[c, edge]
+                    counter[c, edge] += cnt + 1024
+                    if old < 1024:
+                        continue
+                    cnt += old - 1024
+                out[c, t] = cnt <= 3
+                writes[c, t] += 1
+    assert (writes == 1).all()
+    return out
+
+
+@pytest.mark.parametrize("case", torch_covers.CASES)
+def test_kernel_walk_equals_plain(case):
+    """The batch walk the 2D kernel does over covers2d_plan's batches
+    gives the plain version's matrix, for batches of 64, 96 and the
+    kernel's 512 pixels and every gate."""
+    ops = torch_covers.operands(case, 3, 300, 9)
+    for gate in torch_covers.GATES:
+        want = kernels.covers2d_plain(*(torch.from_numpy(a) for a in ops),
+                                      gate=gate).numpy()
+        for cap in (64, 96, kernels.COVERS2D_CAP):
+            assert np.array_equal(_kernel_walk(*ops, gate, cap), want)
+
+
 def test_covers_refuses_bad_operands():
     c = torch.zeros((2, 64, 3), dtype=torch.uint8)
     with pytest.raises(ValueError, match="64, 3"):
@@ -106,6 +210,11 @@ def test_covers_refuses_bad_operands():
     with pytest.raises(TypeError, match="bool"):
         kernels.covers2d(c2, torch.ones((2, 64), dtype=torch.uint8), c2,
                          torch.ones((2, 64), dtype=torch.bool))
+    m2 = torch.ones((2, 64), dtype=torch.bool)
+    for gate in (2 ** 31, -2 ** 31 - 1):
+        with pytest.raises(ValueError, match="int32"):
+            kernels.covers2d(c2, m2, c2, m2, gate)
+    assert kernels.covers2d(c2, m2, c2, m2, 2 ** 31 - 1).all()
 
 
 def test_capture_clouds_equal_the_jax_package():

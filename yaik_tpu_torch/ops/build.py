@@ -59,8 +59,11 @@ SIGNATURES = {
     # tiles, alive, a_c, b_c, mode48, mn, d, pts, factors, scratch, T, P,
     # E, accept, tile_type, idx, stream
     "yaik_values48": (P, P, P, P, P, P, P, P, P, P, L, I, I, P, P, P, P),
-    # cands, cmask, tiles, tmask, D, k, n, gate, out, stream
-    "yaik_covers": (P, P, P, P, I, I, I, I, P, P),
+    # cands, tiles, k, n, gate, out, stream
+    "yaik_covers": (P, P, I, I, I, P, P),
+    # cands, cmask, tiles, tmask, starts, tfirst, scratch, k, n, nb, cap,
+    # gate, out, stream
+    "yaik_covers2d": (P, P, P, P, P, P, P, I, I, I, I, I, P, P),
 }
 
 

@@ -785,14 +785,47 @@ def covers2d_plain(cands: torch.Tensor, cand_mask: torch.Tensor,
                    ) -> torch.Tensor:
     """The 2D coverage matrix (`mining._covers2d_device`): point sets
     padded to 64, cands [k, 64, 2] with cand_mask [k, 64] bool (pad points
-    sit at (4096, 4096)), tiles [n, 64, 2] with tile_mask [n, 64] bool (pad
-    pixels are not counted), u8 or i32 coordinates -> [k, n] bool."""
+    sit at (4096, 4096), whatever their slots hold), tiles [n, 64, 2] with
+    tile_mask [n, 64] bool (pad pixels are not counted), u8 or i32
+    coordinates in 0..4096, in any layout of live and pad slots -> [k, n]
+    bool: tile t is covered by candidate c when at most 3 of its counted
+    pixels have a squared nearest-point distance above `gate` (an int32).
+    Every distance in int32, over all 64 slots of both."""
     return _covers_plain(cands.to(torch.int32), cand_mask,
                          tiles.to(torch.int32), tile_mask, gate, chunk)
 
 
-def _covers(fn, D: int, cands, cmask, tiles, tmask, gate: int
-            ) -> torch.Tensor:
+# counted pixels a batch of the 2D kernel: 32 lanes x 16 (csrc/covers.cu
+# CAP)
+COVERS2D_CAP = 512
+
+
+def covers2d_plan(tile_mask: torch.Tensor, cap: int = COVERS2D_CAP
+                  ) -> tuple:
+    """The 2D kernel's batch plan, torch ops on the mask's device with no
+    host sync. The tiles' counted pixels, in tile and slot order, make one
+    stream, cut into batches of `cap`: tile_mask [n, 64] bool -> (starts
+    [n + 1] i32: tile t's counted pixels are the stream's slots starts[t]
+    .. starts[t + 1] - 1, starts[n] their total; tfirst [n * 64 // cap + 2]
+    i32: tfirst[b] is the first tile t with starts[t] >= b * cap, or n).
+    Batch b takes the slots b * cap .. min((b + 1) * cap, starts[n]) - 1,
+    the tiles tfirst[b] .. tfirst[b + 1] - 1 that start there and the one
+    that runs into it."""
+    if cap < 64:
+        raise ValueError(f"cap {cap} is below a tile's 64 pixels")
+    n, dev = tile_mask.shape[0], tile_mask.device
+    starts = torch.zeros(n + 1, dtype=torch.int32, device=dev)
+    torch.cumsum(tile_mask.sum(1, dtype=torch.int32), 0, out=starts[1:])
+    lows = torch.arange(n * 64 // cap + 2, dtype=torch.int32,
+                        device=dev) * cap
+    tfirst = torch.searchsorted(starts[:n], lows, out_int32=True)
+    return starts, tfirst
+
+
+def _cover_operands(D: int, cands, cmask, tiles, tmask, gate: int) -> None:
+    """Raise unless the operands are cands [k, 64, D] and tiles [n, 64, D]
+    (u8 or i32), the masks (2D) bool [k, 64] and [n, 64], contiguous, all
+    on one device, and gate an int32."""
     dev = cands.device
     if cands.ndim != 3 or tiles.ndim != 3:
         raise ValueError(f"cands and tiles must be [k, 64, {D}] and "
@@ -808,29 +841,37 @@ def _covers(fn, D: int, cands, cmask, tiles, tmask, gate: int
     if cmask is not None:
         _expect(cmask, "cand_mask", torch.bool, (k, 64), dev)
         _expect(tmask, "tile_mask", torch.bool, (n, 64), dev)
-    if not _route(dev):
-        return _covers_plain(cands.to(torch.int32), cmask,
-                             tiles.to(torch.int32), tmask, gate,
-                             COVERS_CHUNK)
-    c = cands.to(torch.int32).contiguous()
-    t = tiles.to(torch.int32).contiguous()
-    out = torch.empty((k, n), dtype=torch.bool, device=dev)
-    with torch.cuda.device(dev):
-        err = build.library().yaik_covers(
-            c.data_ptr(), None if cmask is None else cmask.data_ptr(),
-            t.data_ptr(), None if tmask is None else tmask.data_ptr(), D, k,
-            n, gate, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "yaik_covers")
-    _count(fn, dev)
-    return out
+    if not -2 ** 31 <= gate < 2 ** 31:
+        raise ValueError(f"gate {gate} is not an int32")
+
+
+def _aligned(t: torch.Tensor, align: int) -> torch.Tensor:
+    """`t`, or a copy of it where its data does not start on `align`
+    bytes."""
+    return t if t.data_ptr() % align == 0 else t.clone()
 
 
 def covers(cands: torch.Tensor, tiles: torch.Tensor, gate_px: int = 75
            ) -> torch.Tensor:
     """The 3D coverage matrix (see covers_plain): cands [k, 64, 3], tiles
     [n, 64, 3], u8 or i32, on one device -> [k, n] bool, one launch."""
-    return _covers(covers, 3, cands, None, tiles, None, gate_px)
+    _cover_operands(3, cands, None, tiles, None, gate_px)
+    dev = cands.device
+    if not _route(dev):
+        return _covers_plain(cands.to(torch.int32), None,
+                             tiles.to(torch.int32), None, gate_px,
+                             COVERS_CHUNK)
+    k, n = cands.shape[0], tiles.shape[0]
+    c = cands.to(torch.int32).contiguous()
+    t = tiles.to(torch.int32).contiguous()
+    out = torch.empty((k, n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().yaik_covers(
+            c.data_ptr(), t.data_ptr(), k, n, gate_px, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "yaik_covers")
+    _count(covers, dev)
+    return out
 
 
 covers.launches = 0
@@ -841,8 +882,36 @@ def covers2d(cands: torch.Tensor, cand_mask: torch.Tensor,
              tiles: torch.Tensor, tile_mask: torch.Tensor, gate: int = 36
              ) -> torch.Tensor:
     """The 2D coverage matrix (see covers2d_plain); all operands on one
-    device, the masks contiguous -> [k, n] bool, one launch."""
-    return _covers(covers2d, 2, cands, cand_mask, tiles, tile_mask, gate)
+    device, the masks contiguous -> [k, n] bool, one launch. On the card
+    the kernel computes each live point of a candidate against each
+    counted pixel of a tile only (in the batches of `covers2d_plan`), one
+    dp2a a distance where the candidates' points lie in 0..255 (u8) and
+    the pixels in 0..16383, else in int32; bit-equal to covers2d_plain
+    either way (csrc/covers.cu)."""
+    _cover_operands(2, cands, cand_mask, tiles, tile_mask, gate)
+    dev = cands.device
+    if not _route(dev):
+        return _covers_plain(cands.to(torch.int32), cand_mask,
+                             tiles.to(torch.int32), tile_mask, gate,
+                             COVERS_CHUNK)
+    k, n = cands.shape[0], tiles.shape[0]
+    # the kernel reads a point as 8 bytes and a tile's mask as 16-byte words
+    c = _aligned(cands.to(torch.int32).contiguous(), 8)
+    t = _aligned(tiles.to(torch.int32).contiguous(), 8)
+    tile_mask = _aligned(tile_mask, 16)
+    out = torch.empty((k, n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        starts, tfirst = covers2d_plan(tile_mask)
+        nb = tfirst.numel() - 1
+        scratch = torch.zeros(k * nb, dtype=torch.int32, device=dev)
+        err = build.library().yaik_covers2d(
+            c.data_ptr(), cand_mask.data_ptr(), t.data_ptr(),
+            tile_mask.data_ptr(), starts.data_ptr(), tfirst.data_ptr(),
+            scratch.data_ptr(), k, n, nb, COVERS2D_CAP, gate,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "yaik_covers2d")
+    _count(covers2d, dev)
+    return out
 
 
 covers2d.launches = 0
