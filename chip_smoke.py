@@ -196,7 +196,7 @@ RGBA = ["alpha64_1bit", "alpha64_6bit", "alpha64_8bit", "alpha64_const255",
         "alpha64_sparse", "sprite256", "sprite256_6bit"]
 DECODE_KERNELS = ("grad_plane", "grad_plane_final", "t3_merged",
                   "t3_merged_d1", "t2_merged", "lut_pass")
-ENCODE_KERNELS = ("score48", "score48_mode", "values48")
+ENCODE_KERNELS = ("grad_score", "score48", "score48_mode", "values48")
 KERNELS = {
     "grad_plane": ("yaik_tpu_torch/ops/csrc/grad_plane.cu",
                    "yaik_tpu/ops/pallas_kernels.py:311"),
@@ -222,6 +222,10 @@ KERNELS = {
                      "yaik_tpu/ops/pallas_kernels.py:409"),
     "values48": ("yaik_tpu_torch/ops/csrc/values48.cu",
                  "yaik_tpu/ops/pallas_kernels.py:906"),
+    # the encoder's gradient stage, the 7 passes in one launch: an XLA
+    # program on the TPU (no Pallas kernel), a hand kernel here
+    "grad_score": ("yaik_tpu_torch/ops/csrc/grad_score.cu",
+                   "yaik_tpu/encoder/jax_scoring.py:112"),
     # the LUT-bank miner's coverage matrices: XLA functions on the TPU (no
     # Pallas kernel), a hand kernel here
     "covers": ("yaik_tpu_torch/ops/csrc/covers.cu",
@@ -280,6 +284,8 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
     if got.shape != want.shape or got.dtype != want.dtype:
         raise AssertionError(f"{tuple(got.shape)} {got.dtype} vs "
                              f"{tuple(want.shape)} {want.dtype}")
+    if got.numel() == 0:
+        return 0
     return int((got.cpu().to(torch.int64)
                 - want.cpu().to(torch.int64)).abs().max())
 
@@ -355,11 +361,12 @@ def main() -> int:
     from PIL import Image
     import torch_covers
     from torch_streams import (craft_t3_stream, d1_operands, digest,
-                               synth_t2_pass)
+                               ramp_planes, saturated_planes, synth_t2_pass)
     from yaik_tpu_torch import native
     from yaik_tpu_torch.decoder import engine, pack, planner
     from yaik_tpu_torch.encoder import api, pipeline, scoring, tables
     from yaik_tpu_torch.encoder import bank as bankmod
+    from yaik_tpu_torch.encoder import batch as ebatch
     from yaik_tpu_torch.entropy import zstd_backend
     from yaik_tpu_torch.format import swizzle
     from yaik_tpu_torch.ops import build, kernels
@@ -732,6 +739,46 @@ def main() -> int:
                      kernels.values48_plain(*args))
         return o.c, args
 
+    # the gradient stage: grad_score against its plain version, the packed
+    # accepts and the claims it leaves, on img512, the 4K image, the 2048²
+    # sheet's RGB, seeded ramps broken by noise at the edge shapes (h or w
+    # % 16 == 8, a band's 16k + 1 rows, shapes smaller than a tile) with
+    # random claims, and a B = 8 batch of img512 variants
+    def check_grad(label, planes, claims, rf=3):
+        c_k, c_p = claims.clone(), claims.clone()
+        got = kernels.grad_score(planes, c_k, rf)
+        want = kernels.grad_score_plain(planes, c_p, rf)
+        check_kernel("grad_score", label, [got, c_k], [want, c_p])
+        print(f"  grad_score {label}: {int(got.sum())} of {got.numel()} "
+              f"tiles accepted, {int((c_k & ~claims).sum())} claim bits set")
+
+    def zeros_like(planes):
+        return torch.zeros(planes.shape, dtype=torch.bool, device=dev)
+    for n, img in (("img512", images["img512"]),
+                   ("bench_4k", images["bench_4k"]),
+                   ("sheet2048", enc_src["sheet2048"][..., :3])):
+        p = planes_of(img, dev)
+        check_grad(n, p, zeros_like(p))
+    grng = np.random.default_rng(14)
+    for h, w in ((40, 56), (88, 64), (64, 88), (545, 3840), (17, 1288),
+                 (3, 5), (1, 17), (136, 264)):
+        p = torch.from_numpy(ramp_planes(grng, 1, h, w)[0]).to(dev)
+        check_grad(f"seeded ramps {h}x{w}", p, zeros_like(p))
+        check_grad(f"seeded ramps {h}x{w}, random claims", p,
+                   torch.from_numpy(grng.random(p.shape) < 0.03).to(dev))
+    p = torch.from_numpy(saturated_planes(72, 88)).to(dev)
+    check_grad("tiles only round6p's clamp at 255 accepts, 72x88, "
+               "reject_factor 0", p, zeros_like(p), 0)
+    p = torch.from_numpy(ramp_planes(grng, 4, 136, 264)).to(dev)
+    for rf in (0, 3, 40):
+        check_grad(f"B = 4 seeded ramps 136x264, random claims, "
+                   f"reject_factor {rf}", p,
+                   torch.from_numpy(grng.random(p.shape) < 0.03).to(dev), rf)
+    p = ebatch._upload([np.roll(images["img512"] if i % 2 else
+                               np.asarray(Image.open(FIX / "img512b.png")),
+                               8 * i, axis=i % 2) for i in range(8)], dev)
+    check_grad("B = 8 img512 / img512b rolled", p, zeros_like(p))
+
     # real operands: every pass of img512 and of the 4K image; claims evolve
     # through the gradient stage and the kernel path
     enc_args = {}
@@ -1034,10 +1081,10 @@ def main() -> int:
     print("launches in the encode run (wrapper calls; a values48 call runs "
           "three CUDA kernels): " + ", ".join(
               f"{name} {launches[name]}" for name in ENCODE_KERNELS))
-    # one score48_mode and one values48 per 3D pass; the sums form is off
-    # the encode path
-    want = {"score48": 0, "score48_mode": 6 * len(images),
-            "values48": 6 * len(images)}
+    # one grad_score per gradient stage, one score48_mode and one values48
+    # per 3D pass; the sums form is off the encode path
+    want = {"grad_score": len(images), "score48": 0,
+            "score48_mode": 6 * len(images), "values48": 6 * len(images)}
     if {name: launches[name] for name in ENCODE_KERNELS} != want:
         raise AssertionError(f"encode launches {launches}, {len(images)} "
                              f"encodes call for {want}")
@@ -1070,9 +1117,8 @@ def main() -> int:
 
     lap("3d")
     # -- phase 3d: batched, compacted encode through the user's entry
-    # points (yaik_tpu_torch.encoder.batch): score48_mode and values48 run
-    # once per 3D pass per batch, whatever B is -------------------------
-    from yaik_tpu_torch.encoder import batch as ebatch
+    # points (yaik_tpu_torch.encoder.batch): grad_score runs once per batch,
+    # score48_mode and values48 once per 3D pass per batch, whatever B is --
 
     def variant(img, i):
         """Corpus member i of a base image: itself for i < 2, else rolled
@@ -1117,11 +1163,12 @@ def main() -> int:
               f"variants (B = 8): {enc_batch_launches}; caps learned "
               f"{learned} (default {pipeline.pass_caps(512, 512)})")
         n = enc_batch_launches["score48_mode"] // 6
-        if (enc_batch_launches != {"score48": 0, "score48_mode": 6 * n,
-                                   "values48": 6 * n} or n < 1
-                or which == "second" and n != 1):
-            raise AssertionError("encode_batch does not launch score48_mode "
-                                 "and values48 once per 3D pass per batch")
+        if (enc_batch_launches != {"grad_score": n, "score48": 0,
+                                   "score48_mode": 6 * n, "values48": 6 * n}
+                or n < 1 or which == "second" and n != 1):
+            raise AssertionError("encode_batch does not launch grad_score "
+                                 "once per batch and score48_mode and "
+                                 "values48 once per 3D pass per batch")
         dispatches.append(n)
         for k, st in zip(enc8, got):
             if st != enc_want(k, img_of[k]):
@@ -1131,8 +1178,8 @@ def main() -> int:
             launches[name] += k
     print(f"encode_batch B = 8 512x512: each stream equal to encode_image's "
           f"in both calls; the batch was scored {dispatches[0]} then "
-          f"{dispatches[1]} times, each time one score48_mode and one "
-          "values48 launch per 3D pass")
+          f"{dispatches[1]} times, each time one grad_score launch and one "
+          "score48_mode and one values48 launch per 3D pass")
 
     # the kernels on the B * C compacted operands of the batch's 4x4 pass,
     # at the caps learned
@@ -1180,6 +1227,9 @@ def main() -> int:
           f"128x128 {learned} (default {pipeline.pass_caps(128, 128)})")
     if learned is None:
         raise AssertionError("the noise image did not make the caps grow")
+    if 6 * corpus_launches["grad_score"] != corpus_launches["score48_mode"]:
+        raise AssertionError("encode_corpus does not launch grad_score once "
+                             "per batch scored")
     for k, st in zip(ckeys, got):
         if st != enc_want(k, img_of[k]):
             raise AssertionError(f"encode_corpus: {k} differs from "
@@ -1195,15 +1245,25 @@ def main() -> int:
           "4K stream decoded on the CPU")
     for name, k in corpus_launches.items():
         launches[name] += k
+    for name in ENCODE_KERNELS:
+        getattr(kernels, name).launches = 0
     t = time.perf_counter()
     banded = ebatch.encode_image_banded(img4k, bank3d, device="cuda",
                                         band_rows=544)
+    band_launches = {name: getattr(kernels, name).launches
+                     for name in ENCODE_KERNELS}
     print(f"encode_image_banded bench_4k, bands of 544 rows (544 x 3 + 528) "
           f"({time.perf_counter() - t:.2f} s): "
           f"{'equal to' if banded == stream4k else 'DIFFERS from'} "
-          "encode_image's stream")
+          f"encode_image's stream; launches {band_launches}")
     if banded != stream4k:
         raise AssertionError("encode_image_banded differs from encode_image")
+    if band_launches != {"grad_score": 4, "score48": 0, "score48_mode": 24,
+                         "values48": 24}:
+        raise AssertionError("encode_image_banded does not launch each "
+                             "kernel once a band")
+    for name, k in band_launches.items():
+        launches[name] += k
 
     lap("3e")
     # -- phase 3e: RGBA encode and the passes the reference leaves disabled,
@@ -1253,10 +1313,12 @@ def main() -> int:
           f"({sum(walls.values()):.2f} s): {pass_launches}; encode_image "
           "wall on the card: " + ", ".join(f"{k} {v:.3f} s"
                                            for k, v in walls.items()))
-    if pass_launches != {"score48": 0, "score48_mode": 6 * len(jobs),
+    if pass_launches != {"grad_score": len(jobs), "score48": 0,
+                         "score48_mode": 6 * len(jobs),
                          "values48": 6 * len(jobs)}:
         raise AssertionError("an RGBA or disabled-pass encode does not launch "
-                             "score48_mode and values48 once per 3D pass")
+                             "grad_score once and score48_mode and values48 "
+                             "once per 3D pass")
     for name, k in pass_launches.items():
         launches[name] += k
 
@@ -1325,7 +1387,9 @@ def main() -> int:
     print(f"encode_corpus of {len(mixed)} RGB and RGBA images (512², 256², "
           f"64²): launches {corpus_launches}; each stream "
           f"{'equal to' if got == want else 'DIFFERS from'} encode_image's")
-    if got != want or corpus_launches["score48_mode"] < 6 * 4:
+    if (got != want or corpus_launches["score48_mode"] < 6 * 4
+            or 6 * corpus_launches["grad_score"]
+            != corpus_launches["score48_mode"]):
         raise AssertionError("the mixed encode_corpus is wrong")
     for name, k in corpus_launches.items():
         launches[name] += k
@@ -1361,7 +1425,7 @@ def main() -> int:
     shutil.rmtree(mine_dir, ignore_errors=True)
     mine3 = [images["img512"], base512["img512b"]]
     mine2 = [enc_src["corr2d128"], images["img128"]]
-    for name in MINE_KERNELS:
+    for name in MINE_KERNELS + ("grad_score",):
         getattr(kernels, name).launches = 0
     t = time.perf_counter()
     res = {"cuda": (mining.mine_bank(mine3, mine_dir / "cuda", device="cuda"),
@@ -1370,9 +1434,12 @@ def main() -> int:
     mine_s = time.perf_counter() - t
     launches.update({name: getattr(kernels, name).launches
                      for name in MINE_KERNELS})
+    mine_grad = kernels.grad_score.launches
+    launches["grad_score"] += mine_grad
     print(f"launches in mine_bank (img512, img512b) and mine_bank2d "
           f"(corr2d128, img128) on the card ({mine_s:.2f} s): "
-          f"{ {n: launches[n] for n in MINE_KERNELS} }")
+          f"{ {n: launches[n] for n in MINE_KERNELS} }, grad_score "
+          f"{mine_grad} (one per image mine_bank captures)")
     # the operands mine_bank2d handed covers2d (its clouds and every
     # step-th one as a candidate), against phase 2e's seeded mix
     clouds2 = [c for im in mine2 for c in mining.capture_clouds_2d(im)]
@@ -1381,9 +1448,10 @@ def main() -> int:
           "clouds): live-point share %.4f, counted-pixel share %.4f" % (
               len(cands2), len(clouds2), *torch_covers.shares(
                   mining._padded(cands2)[1], mining._padded(clouds2)[1])))
-    if any(launches[n] != 1 for n in MINE_KERNELS):
+    if any(launches[n] != 1 for n in MINE_KERNELS) or mine_grad != 2:
         raise AssertionError("mining does not launch covers and covers2d "
-                             "once per evaluation")
+                             "once per evaluation and grad_score once per "
+                             "3D capture")
     t = time.perf_counter()
     res["cpu"] = (mining.mine_bank(mine3, mine_dir / "cpu", device="cpu"),
                   mining.mine_bank2d(mine2, mine_dir / "cpu2d", device="cpu"))
@@ -1528,12 +1596,13 @@ def main() -> int:
     # the traces: CUDA kernel events of the kernels each path launches
     # (kernel symbols as the profiler names them), as many as the
     # in-process counts of phase 3 and 3b: 6 per encode, 1 per decode
-    symbols = {"score48_mode": "score48_kernel<true>",
+    symbols = {"grad_score": "grad_score_kernel(",
+               "score48_mode": "score48_kernel<true>",
                "values48": "values48_kernel(", "grad_plane":
                "grad_plane_kernel<false>", "t3_merged": "merged_kernel<0>"}
     for trace_dir, label, want_k in (
             ("trace_encode", "encode bench_4k --trace",
-             {"score48_mode": 6, "values48": 6}),
+             {"grad_score": 1, "score48_mode": 6, "values48": 6}),
             ("trace_decode", "decode bench_4k --trace",
              {"grad_plane": 1, "t3_merged": 1})):
         trace = json.loads((cli_dir / trace_dir / "trace.json").read_text())
@@ -1777,7 +1846,8 @@ def main() -> int:
         finally:
             ectx._ZstdBatch.run = run_batch
         got = {n: getattr(kernels, n).launches for n in ENCODE_KERNELS}
-        if got != {"score48": 0, "score48_mode": 6, "values48": 6}:
+        if got != {"grad_score": 1, "score48": 0, "score48_mode": 6,
+                   "values48": 6}:
             raise AssertionError(f"4K encode launches {got}")
         for name, k in got.items():
             launches[name] += k
@@ -1819,7 +1889,7 @@ def main() -> int:
           f"{corpus_launches}; streams {'equal to' if same else 'DIFFER from'}"
           f" phase 3d's [{card}]")
     if (not same or n_disp < 1 or corpus_launches != {
-            "score48": 0, "score48_mode": 6 * n_disp,
+            "grad_score": n_disp, "score48": 0, "score48_mode": 6 * n_disp,
             "values48": 6 * n_disp}):
         raise AssertionError("encode_corpus with emission threads is wrong")
     for name, k in corpus_launches.items():
@@ -1886,7 +1956,8 @@ def main() -> int:
                 for k in want1}
         got6 = {k: sum(c.get(k, 0) for c in per_axis[
             "encode-scoring DP"].values()) for k in ENCODE_KERNELS}
-        if got1 != want1 or got6 != {"score48": 0, "score48_mode": 6 * n,
+        if got1 != want1 or got6 != {"grad_score": n, "score48": 0,
+                                     "score48_mode": 6 * n,
                                      "values48": 6 * n}:
             raise AssertionError(f"dryrun_multichip {label}: DP launches "
                                  f"{got1} (want {want1}), encode-scoring "
@@ -2169,15 +2240,45 @@ def main() -> int:
             bounds[name] = bound(reads, [out], out.numel()
                                  * (20 if name == "lut_pass" else 45), "i32")
 
+    def kernel_sum(fn) -> tuple:
+        """One warm call of `fn` under torch.profiler: (the device time of
+        its kernels in ms, their launches, rows (ms, count, name) by
+        time). The call is bracketed by two `torch.cuda._sleep` kernels
+        (`spin_kernel`, left out of the rows); a window that records
+        neither is taken again, at most three times (on the H100 one window
+        holding a single launch, right after a window of ~1,000, recorded
+        no kernel). `fn` must take fresh operands each call."""
+        from torch.profiler import ProfilerActivity, profile
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda._sleep(1000)
+                fn()
+                torch.cuda._sleep(1000)
+                torch.cuda.synchronize()
+            events = [ev for ev in prof.key_averages()
+                      if ev.device_time_total > 0]
+            if any("spin_kernel" in ev.key for ev in events):
+                break
+            print("  profile: the window recorded no marker kernel; again")
+        else:
+            raise AssertionError("torch.profiler recorded no marker kernel "
+                                 "in three windows")
+        rows = sorted(((ev.device_time_total / 1e3, ev.count, ev.key)
+                       for ev in events if "spin_kernel" not in ev.key),
+                      reverse=True)
+        return (sum(r[0] for r in rows), sum(r[1] for r in rows), rows)
+
     for n in ("img512", "bench_4k"):
         img = images[n]
         planes = planes_of(img, dev)
 
-        def score_on_device():
+        def score_on_device(plain_grad=False):
             claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
-            scoring.gradient_all(planes, claims, 3)
+            scoring.gradient_all(planes, claims, 3, plain=plain_grad)
             pipeline.tile3d_all(planes, claims, tabs)
-        ms = cuda_ms(score_on_device, 1)     # ~650 launches a call
+        ms = cuda_ms(score_on_device, 1)     # ~370 launches a call
         b2b = cuda_ms(score_on_device, 3, queued=False)
         accepts, t3 = api.score_image(img, bank3d, "cuda")
         t = time.perf_counter()
@@ -2192,20 +2293,21 @@ def main() -> int:
               f"back-to-back with host dispatch {b2b:.3f} ms "
               f"({mpix / b2b * 1e3:.1f} MPix/s), host emission + zstd "
               f"{emit_ms:.2f} ms, encode_image wall {e2e_ms:.2f} ms [{card}]")
-        if n == "bench_4k":           # one warm scoring call, by kernel
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                score_on_device()
-                torch.cuda.synchronize()
-            rows = sorted(((ev.device_time_total / 1e3, ev.count, ev.key)
-                           for ev in prof.key_averages()
-                           if ev.device_time_total > 0), reverse=True)
-            print(f"profile encode {n} scoring: device "
-                  f"{sum(r[0] for r in rows):.3f} ms in "
-                  f"{sum(r[1] for r in rows)} kernel launches, by name "
+        # one warm scoring call by kernel, with the gradient stage as
+        # grad_score and as its plain version (the per-pass torch ops that
+        # ran there before it), in turns
+        for i, plain_grad in enumerate((True, False, False, True)):
+            busy, nl, rows = kernel_sum(lambda: score_on_device(plain_grad))
+            b2b = cuda_ms(lambda: score_on_device(plain_grad), 3,
+                          queued=False)
+            how = ("the plain gradient stage" if plain_grad
+                   else "grad_score")
+            print(f"profile encode {n} scoring, {how}: device {busy:.3f} ms "
+                  f"in {nl} kernel launches, back-to-back {b2b:.3f} ms "
                   f"[{card}]")
-            for dms, cnt, key in rows[:12]:
-                print(f"  profile {dms:.3f} ms x{cnt} {key[:100]}")
+            if n == "bench_4k" and i < 2:
+                for dms, cnt, key in rows[:12]:
+                    print(f"  profile {dms:.3f} ms x{cnt} {key[:100]}")
 
     # the encode kernels on every 4K pass (the sums form, off the encode
     # path, on the 4x4 pass only), with the bounds of this pass's work:
@@ -2281,6 +2383,51 @@ def main() -> int:
                 kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
                 bounds[name] = b[name]
 
+    # grad_score on the 4K image against its plain version, each call on
+    # zeroed claims of its own (the main path's), and the bound of its
+    # work: the planes read once, the claims read and written, the accepts
+    # written; 39 int32 operations per (pixel, channel, pass): the three
+    # bilinear numerators' 18 multiply(-add)s, 3 rounding adds, 6 shifts,
+    # 6 subtracts and 6 compares
+    planes4k = planes_of(img4k, dev)
+
+    def on_fresh_claims(fn, n):
+        pool = iter([zeros_like(planes4k) for _ in range(n)])
+        return lambda: fn(planes4k, next(pool), 3)
+    p1 = cuda_ms(on_fresh_claims(kernels.grad_score_plain, 4), 3,
+                 queued=False)
+    k1 = cuda_ms(on_fresh_claims(kernels.grad_score, 23), 20)
+    k2 = cuda_ms(on_fresh_claims(kernels.grad_score, 23), 20)
+    p2 = cuda_ms(on_fresh_claims(kernels.grad_score_plain, 4), 3,
+                 queued=False)
+    claims = zeros_like(planes4k)
+    out = kernels.grad_score(planes4k, claims, 3)
+    h4, w4 = img4k.shape[:2]
+    px_passes = sum(((h4 >> sy) << sy) * ((w4 >> sx) << sx)
+                    for (sx, sy) in swizzle.GRADIENT_PASS_ORDER)
+    bounds["grad_score"] = bound([planes4k, claims], [claims, out],
+                                 px_passes * 3 * 39, "i32")
+    # the gradient stage as the encode path calls it launches grad_score and
+    # nothing else: no per-pass torch op is left
+    _, nl, rows = kernel_sum(on_fresh_claims(scoring.gradient_packed, 4))
+    print(f"profile the 4K gradient stage (scoring.gradient_packed): {nl} "
+          f"kernel launch(es): {[key[:60] for _, _, key in rows]} [{card}]")
+    if nl != 1 or "grad_score_kernel" not in rows[0][2]:
+        raise AssertionError("the gradient stage launches more than "
+                             "grad_score")
+    plain_dev, plain_n, _ = kernel_sum(on_fresh_claims(
+        kernels.grad_score_plain, 4))
+    kms["grad_score"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    print(f"time grad_score bench_4k 3840x2160: kernel {k1:.4f} / {k2:.4f} "
+          f"ms, plain {p1:.4f} / {p2:.4f} ms back to back (plain, kernel, "
+          f"kernel, plain; its kernels {plain_dev:.3f} ms of device time in "
+          f"{plain_n} launches); bound {bounds['grad_score'][0]:.4f} ms "
+          f"({bounds['grad_score'][1]}, {px_passes * 3 * 39:.4g} operations, "
+          f"{nbytes(planes4k, claims, claims, out) / 1e6:.1f} MB), "
+          f"{bounds['grad_score'][0] / kms['grad_score'][0]:.0%} of it; "
+          f"{int(out.sum())} of {out.numel()} tiles accepted [{card}]")
+    del planes4k, claims, out
+
     # the batch encode path (phase 3d's images): device scoring per 512^2
     # image at B = 1, 4, 16 (the gradient stage and the six compacted 3D
     # passes, no download), the cap's saving, the bytes each download
@@ -2290,32 +2437,38 @@ def main() -> int:
              for i in range(16)]
     perms512 = pipeline.scan_perms(512, 512, dev)
 
-    def score_batch(planes, caps):
-        _, claims = ebatch._score_gradients(planes, cfg)
+    def score_batch(planes, caps, plain_grad=False):
+        if plain_grad:          # the gradient stage's plain version
+            claims = zeros_like(planes)
+            kernels.grad_score_plain(planes, claims, cfg.reject_factor)
+        else:
+            _, claims = ebatch._score_gradients(planes, cfg)
         return pipeline._tile3d_all_compact(planes, claims, tabs, perms512,
                                             caps)
-    from torch.profiler import ProfilerActivity, profile
     for B in (1, 4, 16):
         planes = ebatch._upload(enc16[:B], dev)
-        ms = cuda_ms(lambda: score_batch(planes, caps512), 1)
-        b2b = cuda_ms(lambda: score_batch(planes, caps512), 3, queued=False)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            score_batch(planes, caps512)
-            torch.cuda.synchronize()
-        evs = [ev for ev in prof.key_averages() if ev.device_time_total > 0]
-        busy = sum(ev.device_time_total for ev in evs) / 1e3
-        nl = sum(ev.count for ev in evs)
         mpix = B * 512 * 512 / 1e6
-        # past ~1,000 queued launches the host blocks behind the sleep, so
-        # the profiler's kernel sum is the device time of a batch
-        print(f"time encode scoring B={B} 512x512 (gradients + compacted 3D "
-              f"passes at the caps learned, blob on the card): device "
-              f"(kernel sum, profiler) {busy:.3f} ms/batch, "
-              f"{busy / B:.4f} ms/image ({mpix / busy * 1e3:.1f} MPix/s) in "
-              f"{nl} launches; queued behind a sleep {ms:.3f} ms/batch "
-              f"({ms / B:.4f} ms/image); back-to-back {b2b:.3f} ms/batch, "
-              f"{b2b / B:.4f} ms/image ({mpix / b2b * 1e3:.1f} MPix/s) "
-              f"[{card}]")
+        # the gradient stage as grad_score and as its plain version (the
+        # per-pass torch ops that ran there before it), in turns
+        for plain_grad in (True, False, False, True):
+            how = ("the plain gradient stage" if plain_grad
+                   else "grad_score")
+            ms = cuda_ms(lambda: score_batch(planes, caps512, plain_grad), 1)
+            b2b = cuda_ms(lambda: score_batch(planes, caps512, plain_grad),
+                          3, queued=False)
+            busy, nl, _ = kernel_sum(
+                lambda: score_batch(planes, caps512, plain_grad))
+            # past ~1,000 queued launches the host blocks behind the sleep,
+            # so the profiler's kernel sum is the device time of a batch
+            print(f"time encode scoring B={B} 512x512 (gradients + "
+                  f"compacted 3D passes at the caps learned, blob on the "
+                  f"card), {how}: device (kernel sum, profiler) "
+                  f"{busy:.3f} ms/batch, {busy / B:.4f} ms/image "
+                  f"({mpix / busy * 1e3:.1f} MPix/s) in {nl} launches; "
+                  f"queued behind a sleep {ms:.3f} ms/batch "
+                  f"({ms / B:.4f} ms/image); back-to-back {b2b:.3f} "
+                  f"ms/batch, {b2b / B:.4f} ms/image "
+                  f"({mpix / b2b * 1e3:.1f} MPix/s) [{card}]")
     # what the cap saves: the 4x4 pass's operand stage, and all six 3D
     # passes with their scoring, capped against dense (B = 16 512^2, and
     # the 4K image alone), on the claims the gradient stage leaves

@@ -18,7 +18,8 @@ from PIL import Image
 
 import yaik_tpu_torch
 import torch_covers
-from torch_streams import craft_t3_stream, d1_operands
+from torch_streams import (craft_t3_stream, d1_operands, ramp_planes,
+                           saturated_planes)
 from yaik_tpu.decoder import planner as plannermod
 from yaik_tpu.decoder import reference as refdec
 from yaik_tpu.encoder import bank as bankmod
@@ -192,6 +193,68 @@ def _pass_operands(planes, bank3d, cuda, shifts):
             out[sx, sy] = scoring.tile3d_operands(planes, claims, sx, sy)
         scoring.tile3d_pass(planes, claims, tabs, sx, sy)
     return out, tabs
+
+
+def _check_grad_score(planes, claims, rf=3):
+    """kernels.grad_score on the card, exactly one launch: its packed
+    accepts and the claims it leaves equal grad_score_plain's on the same
+    operands."""
+    c_k, c_p = claims.clone(), claims.clone()
+    before = kernels.grad_score.launches
+    got = kernels.grad_score(planes, c_k, rf)
+    torch.cuda.synchronize()
+    assert kernels.grad_score.launches == before + 1
+    want = kernels.grad_score_plain(planes, c_p, rf)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert torch.equal(c_k.cpu(), c_p.cpu())
+    return got
+
+
+@pytest.mark.parametrize("name", ["img64", "quilt128", "img512", "img512b",
+                                  "bench_4k"])
+def test_grad_score_kernel_vs_plain_fixtures(cuda, name, image_4k):
+    img = (image_4k if name == "bench_4k"
+           else np.asarray(Image.open(FIX / f"{name}.png")))
+    planes = torch.from_numpy(np.ascontiguousarray(
+        img[:, :, :3].transpose(2, 0, 1), np.int32)).to(cuda)
+    got = _check_grad_score(planes, torch.zeros(
+        planes.shape, dtype=torch.bool, device=cuda))
+    assert got.any()
+
+
+@pytest.mark.parametrize("h,w", [(40, 56), (88, 64), (64, 88), (49, 1288),
+                                 (545, 512), (17, 16), (3, 5), (1, 17),
+                                 (136, 264)])
+def test_grad_score_kernel_vs_plain_edges(cuda, h, w):
+    """Seeded ramps at h or w % 16 == 8, a band's 16k + 1 rows and shapes
+    below a tile, with no claims and with random claims."""
+    rng = np.random.default_rng(h * 10007 + w)
+    planes = torch.from_numpy(ramp_planes(rng, 1, h, w)[0]).to(cuda)
+    _check_grad_score(planes, torch.zeros(planes.shape, dtype=torch.bool,
+                                          device=cuda))
+    _check_grad_score(planes, torch.from_numpy(
+        rng.random(planes.shape) < 0.03).to(cuda))
+
+
+def test_grad_score_kernel_vs_plain_round6p_clamp(cuda):
+    """Tiles that only round6p's clamp at 255 accepts (reject factor 0)."""
+    planes = torch.from_numpy(saturated_planes(72, 88)).to(cuda)
+    got = _check_grad_score(planes, torch.zeros(
+        planes.shape, dtype=torch.bool, device=cuda), 0)
+    assert got.any()
+
+
+@pytest.mark.parametrize("rf", [0, 3, 40])
+def test_grad_score_kernel_vs_plain_batch(cuda, rf):
+    """B = 4 with random claims: one launch for the batch, each image's
+    accepts and claims equal to its own call's."""
+    rng = np.random.default_rng(rf)
+    planes = torch.from_numpy(ramp_planes(rng, 4, 136, 264)).to(cuda)
+    claims = torch.from_numpy(rng.random(planes.shape) < 0.03).to(cuda)
+    got = _check_grad_score(planes, claims, rf)
+    for b in range(4):
+        assert torch.equal(got[b], _check_grad_score(planes[b], claims[b],
+                                                     rf))
 
 
 def _check_scores(c, alive, qpts):

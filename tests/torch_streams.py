@@ -129,6 +129,41 @@ def d1_operands(rng, G: int) -> tuple:
                  for a in (prm, words[:12], words[12:]))
 
 
+def ramp_planes(rng, B: int, h: int, w: int) -> np.ndarray:
+    """[B, 3, h, w] i32 gradient-stage operands: a seeded ramp per image and
+    channel, broken by 0-2 noise pixels in each 16x16 block (its larger
+    tiles fail in varied ways and smaller ones accept) and, where the image
+    is wider than 16, by noise in its second 16x16 block of the top row:
+    every gradient pass accepts some tiles and rejects others."""
+    y, x = np.mgrid[0:h, 0:w]
+    out = np.empty((B, 3, h, w), np.int32)
+    for b in range(B):
+        for c in range(3):
+            out[b, c] = np.clip(np.round(
+                rng.uniform(40, 200) + rng.uniform(-0.8, 0.8) * x
+                + rng.uniform(-0.8, 0.8) * y), 0, 255)
+        for by in range(0, h, 16):
+            for bx in range(0, w, 16):
+                for _ in range(int(rng.integers(0, 3))):
+                    py = min(by + int(rng.integers(0, 16)), h - 1)
+                    px = min(bx + int(rng.integers(0, 16)), w - 1)
+                    out[b, :, py, px] = (out[b, :, py, px] + 60
+                                         + rng.integers(0, 80, 3)) % 256
+        block = out[b, :, :16, 16:32]
+        block[:] = rng.integers(0, 256, block.shape)
+    return out
+
+
+def saturated_planes(h: int, w: int) -> np.ndarray:
+    """[3, h, w] i32: 255 with 251 on every other 4-pixel lattice point. At
+    reject factor 0 a 4x4 tile on a 255 origin passes by its round6p blend
+    alone (round6p(251) = 255, and round6p clamps 255 at 255)."""
+    y, x = np.mgrid[0:h, 0:w]
+    odd = (y % 4 == 0) & (x % 4 == 0) & ((y // 4 + x // 4) % 2 == 1)
+    return np.ascontiguousarray(np.broadcast_to(
+        np.where(odd, 251, 255), (3, h, w)), np.int32)
+
+
 def digest(pixels: np.ndarray) -> dict:
     """The shape and sha256 of a u8 pixel array, as
     tests/fixtures/port_digests.json holds them."""

@@ -82,15 +82,14 @@ def score_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
                 config: EncoderConfig | None = None, plain: bool = False):
     """All tile scoring of one image's RGB planes on `device`: (the 7
     gradient accept grids, the six 3D passes' result dicts), as numpy
-    arrays. `plain` scores the 3D passes with the kernels' plain
-    versions."""
+    arrays. `plain` scores every pass with the kernels' plain versions."""
     cfg = config or EncoderConfig()
     _check(rgb)
     dev = device_of(device)
     planes = torch.from_numpy(np.ascontiguousarray(_planes(rgb))).to(dev)
     claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
     accepts = pipeline.run_gradient_scoring(planes, claims,
-                                            cfg.reject_factor)
+                                            cfg.reject_factor, plain)
     with profiler.stage("encode:3d-scoring"):
         t3 = pipeline.run_tile3d_scoring(planes, claims,
                                          tables.device_tables(bank, dev),

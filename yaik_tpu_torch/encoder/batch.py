@@ -73,6 +73,7 @@ from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder.context import EncoderConfig, _ZstdBatch
 from yaik_tpu_torch.encoder.tables import BankTables, device_tables
 from yaik_tpu_torch.format import swizzle
+from yaik_tpu_torch.ops import kernels
 from yaik_tpu_torch.parallel import batch as pbatch
 from yaik_tpu_torch.utils import profiler
 
@@ -93,9 +94,9 @@ DEVICE_SCORE_MAX_PIX = 256 << 20
 
 
 def _grad_packed_len(w: int, h: int) -> int:
-    """Byte length of the blob's gradient-accepts prefix."""
-    return sum((h >> sy) * (w >> sx)
-               for (sx, sy) in swizzle.GRADIENT_PASS_ORDER)
+    """Byte length of the blob's gradient-accepts prefix: the packed
+    accepts of `kernels.grad_score`."""
+    return kernels.grad_score_len(h, w)
 
 
 @dataclasses.dataclass
@@ -121,13 +122,11 @@ def _upload(imgs: list, dev: torch.device) -> torch.Tensor:
 
 
 def _score_gradients(planes: torch.Tensor, cfg: EncoderConfig):
-    """(the 7 gradient passes' accepts packed [B, G] u8, the claims)."""
+    """(the 7 gradient passes' accepts packed [B, G] u8, as
+    `kernels.grad_score` writes them, the claims)."""
     claims = torch.zeros(planes.shape, dtype=torch.bool,
                          device=planes.device)
-    accepts = scoring.gradient_all(planes, claims, cfg.reject_factor)
-    B = planes.shape[0]
-    return torch.cat([a.reshape(B, -1).to(torch.uint8) for a in accepts],
-                     dim=1), claims
+    return scoring.gradient_packed(planes, claims, cfg.reject_factor), claims
 
 
 def _split_gradients(packed: np.ndarray, w: int, h: int) -> list:

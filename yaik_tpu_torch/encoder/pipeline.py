@@ -34,11 +34,14 @@ from yaik_tpu_torch.encoder.tables import BankTables
 
 
 def run_gradient_scoring(planes: torch.Tensor, claims: torch.Tensor,
-                         reject_factor: int) -> list[np.ndarray]:
-    """The 7 gradient passes; returns their accept grids as numpy bool.
-    Claims evolve in place."""
-    return [a.cpu().numpy()
-            for a in scoring.gradient_all(planes, claims, reject_factor)]
+                         reject_factor: int, plain: bool = False
+                         ) -> list[np.ndarray]:
+    """The 7 gradient passes (`kernels.grad_score`, or with `plain` its
+    plain version), their packed accepts downloaded once; returns their
+    accept grids as numpy bool. Claims evolve in place."""
+    h, w = planes.shape[-2:]
+    packed = scoring.gradient_packed(planes, claims, reject_factor, plain)
+    return [a.numpy() for a in scoring.split_accepts(packed.cpu(), h, w)]
 
 
 def tile3d_all(planes: torch.Tensor, claims: torch.Tensor,

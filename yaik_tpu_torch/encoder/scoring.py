@@ -1,11 +1,11 @@
 """Device encode scoring, in PyTorch: the counterpart of
 `yaik_tpu.encoder.jax_scoring`.
 
-- `gradient_pass` / `gradient_all`: the 6-variant bilinear accept test of
-  every tile position (`gradient_pass_device` / `gradient_all_device`), the
-  7 passes in order with claims evolving between them, over a batch of
-  images [B, 3, H, W] (the JAX package vmaps them) or one image [3, H, W]
-  (B = 1 of the same code); the launches do not depend on B;
+- `gradient_packed` / `gradient_all`: the 6-variant bilinear accept test of
+  every tile position (`gradient_all_device`), the 7 passes in order with
+  claims evolving between them, over a batch of images [B, 3, H, W] (the
+  JAX package vmaps it) or one image [3, H, W]: one launch of
+  `kernels.grad_score` whatever B is, its accepts packed [B, G] u8;
 - `tile3d_operands_b` / `tile3d_pass_b`: one 3D LUT size pass over a batch
   (`tile3d_pass_resident_b`): the images flattened into the tile axis
   (B * T rows), tile extraction, the claims mask, the per-tile bbox, with
@@ -28,19 +28,9 @@ from typing import NamedTuple
 
 import torch
 
-from yaik_tpu_torch.encoder.gradient import ROUNDING
 from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.encoder.tables import BankTables
 from yaik_tpu_torch.ops import kernels
-
-
-def round6(v: torch.Tensor) -> torch.Tensor:
-    r = v >> 2
-    return (r << 2) | (r >> 4)
-
-
-def round6p(v: torch.Tensor) -> torch.Tensor:
-    return round6(torch.clamp(v + 1, max=255))
 
 
 def _claim(claims: torch.Tensor, accept: torch.Tensor, th: int, tw: int):
@@ -52,59 +42,38 @@ def _claim(claims: torch.Tensor, accept: torch.Tensor, th: int, tw: int):
         B, 1, nty * th, ntx * tw)
 
 
-def _weights(t: int, dev: torch.device) -> torch.Tensor:
-    """gradient.WEIGHTS[t] = 1024 - i * 1024 / t, made on the device (a
-    copy from the host would synchronize the stream)."""
-    return 1024 - torch.arange(t, dtype=torch.int32, device=dev) * (1024 // t)
+def gradient_packed(planes: torch.Tensor, claims: torch.Tensor,
+                    reject_factor: int, plain: bool = False) -> torch.Tensor:
+    """The 7 gradient passes over planes [(B,) 3, H, W] i32 (made
+    contiguous) with claims [(B,) 3, H, W] bool evolving in place: their
+    accept grids packed as [(B,) G] u8 in `swizzle.GRADIENT_PASS_ORDER`.
+    `kernels.grad_score` (one launch on the card, its plain version on the
+    CPU), or with `plain` its plain version on any device."""
+    fn = kernels.grad_score_plain if plain else kernels.grad_score
+    return fn(planes.contiguous(), claims, reject_factor)
 
 
-def gradient_pass(planes: torch.Tensor, claims: torch.Tensor, sx: int,
-                  sy: int, reject_factor: int) -> torch.Tensor:
-    """planes [B, 3, H, W] i32, claims [B, 3, H, W] bool -> accept
-    [B, nty, ntx] bool of the (1<<sx) x (1<<sy) pass; claims take the
-    accepted tiles. One image [3, H, W] gives [nty, ntx]."""
-    if planes.ndim == 3:
-        return gradient_pass(planes[None], claims[None], sx, sy,
-                             reject_factor)[0]
-    tw, th = 1 << sx, 1 << sy
-    B, _, h, w = planes.shape
-    ntx, nty = w // tw, h // th
-    dev = planes.device
-    # the corner grid clamps at each image's last row and column (a band's
-    # halo row is its last row: jax_scoring.gradient_pass_device)
-    xs = torch.arange(0, (ntx + 1) * tw, tw, device=dev).clamp(max=w - 1)
-    ys = torch.arange(0, (nty + 1) * th, th, device=dev).clamp(max=h - 1)
-    corners = planes[:, :, ys[:, None], xs[None, :]]   # [B, 3, nty+1, ntx+1]
-    c00, c01 = corners[:, :, :nty, :ntx], corners[:, :, :nty, 1:]
-    c10, c11 = corners[:, :, 1:, :ntx], corners[:, :, 1:, 1:]
-    pix = planes[:, :, :nty * th, :ntx * tw].reshape(B, 3, nty, th, ntx, tw)
-    pix = pix.permute(0, 1, 2, 4, 3, 5)         # [B, 3, nty, ntx, th, tw]
-    lf = _weights(tw, dev).reshape(1, 1, 1, 1, 1, tw)
-    tf = _weights(th, dev).reshape(1, 1, 1, 1, th, 1)
-
-    def blends(a, b, c, d):
-        # int32 suffices: blends peak at 255*1024*1024 + 2^19 < 2^31
-        top = a[..., None, None] * lf + b[..., None, None] * (1024 - lf)
-        bot = c[..., None, None] * lf + d[..., None, None] * (1024 - lf)
-        num = top * tf + bot * (1024 - tf)
-        return (num + ROUNDING) >> 20, num >> 20
-
-    ok = torch.zeros((B, nty, ntx), dtype=torch.bool, device=dev)
-    for rnd in (lambda v: v, round6, round6p):
-        for bl in blends(rnd(c00), rnd(c01), rnd(c10), rnd(c11)):
-            ok |= ((pix - bl).abs() <= reject_factor).all(-1).all(-1).all(1)
-    origins = claims[:, :, ::th, ::tw][:, :, :nty, :ntx]
-    accept = ok & ~origins.any(1)
-    _claim(claims, accept, th, tw)
-    return accept
+def split_accepts(packed: torch.Tensor, h: int, w: int) -> list:
+    """[(B,) G] u8 packed accepts -> the 7 passes' grids [(B,) nty, ntx]
+    bool, views of `packed`."""
+    flags, lead = packed.view(torch.bool), packed.shape[:-1]
+    out, off = [], 0
+    for (sx, sy) in swizzle.GRADIENT_PASS_ORDER:
+        nty, ntx = h >> sy, w >> sx
+        out.append(flags[..., off:off + nty * ntx].reshape(*lead, nty, ntx))
+        off += nty * ntx
+    return out
 
 
 def gradient_all(planes: torch.Tensor, claims: torch.Tensor,
-                 reject_factor: int) -> list[torch.Tensor]:
-    """The 7 gradient passes in `swizzle.GRADIENT_PASS_ORDER`; returns
-    their accept grids (claims evolve in place)."""
-    return [gradient_pass(planes, claims, sx, sy, reject_factor)
-            for (sx, sy) in swizzle.GRADIENT_PASS_ORDER]
+                 reject_factor: int, plain: bool = False
+                 ) -> list[torch.Tensor]:
+    """The 7 gradient passes in `swizzle.GRADIENT_PASS_ORDER` (see
+    gradient_packed); returns their accept grids (claims evolve in
+    place)."""
+    h, w = planes.shape[-2:]
+    return split_accepts(gradient_packed(planes, claims, reject_factor,
+                                         plain), h, w)
 
 
 class Tile3DOperands(NamedTuple):

@@ -62,7 +62,8 @@ def entry(stream: str | os.PathLike, lut: str | os.PathLike,
 
 
 _KERNELS = ("grad_plane", "grad_plane_final", "t3_merged", "t3_merged_d1",
-            "t2_merged", "lut_pass", "score48", "score48_mode", "values48")
+            "t2_merged", "lut_pass", "grad_score", "score48", "score48_mode",
+            "values48")
 
 
 def _launches() -> dict:

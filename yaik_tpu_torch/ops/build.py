@@ -59,6 +59,8 @@ SIGNATURES = {
     # tiles, alive, a_c, b_c, mode48, mn, d, pts, factors, scratch, T, P,
     # E, accept, tile_type, idx, stream
     "yaik_values48": (P, P, P, P, P, P, P, P, P, P, L, I, I, P, P, P, P),
+    # planes, claims, accepts, B, h, w, G, reject_factor, stream
+    "yaik_grad_score": (P, P, P, I, I, I, L, I, P),
     # cands, tiles, k, n, gate, out, stream
     "yaik_covers": (P, P, I, I, I, P, P),
     # cands, cmask, tiles, tmask, starts, tfirst, scratch, k, n, nb, cap,

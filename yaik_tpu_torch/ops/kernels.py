@@ -20,6 +20,10 @@ Counterpart of `yaik_tpu/ops/pallas_kernels.py` for the device decode
   the Pallas `score48` together with the `argmin` that follows it;
 - `values48` (csrc/values48.cu) replaces the Pallas `values48` and the XLA
   values stage it twins;
+- `grad_score` (csrc/grad_score.cu) replaces no Pallas kernel: it computes
+  the encoder's gradient stage, the 7 gradient passes with claims evolving
+  between them, in one launch, XLA on the TPU
+  (`yaik_tpu/encoder/jax_scoring.py` `gradient_all_device`);
 - `covers` and `covers2d` (csrc/covers.cu) replace no Pallas kernel: they
   compute the LUT-bank miner's coverage matrices, XLA on the TPU
   (`yaik_tpu/encoder/mining.py` `_covers_device`, `_covers2d_device`).
@@ -49,6 +53,8 @@ import math
 import torch
 
 from yaik_tpu_torch.decoder.pack import GRAD_SHIFTS
+from yaik_tpu_torch.encoder.gradient import ROUNDING
+from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.ops import build
 
 _SHIFTS = (ctypes.c_int * 14)(*[s[0] for s in GRAD_SHIFTS],
@@ -509,6 +515,116 @@ def lut_pass(tab: torch.Tensor, packed: torch.Tensor, cols: torch.Tensor,
 
 lut_pass.launches = 0
 lut_pass.per_device = {}
+
+
+def _round6(v: torch.Tensor) -> torch.Tensor:
+    r = v >> 2
+    return (r << 2) | (r >> 4)
+
+
+def _round6p(v: torch.Tensor) -> torch.Tensor:
+    return _round6(torch.clamp(v + 1, max=255))
+
+
+def _grad_weights(t: int, dev: torch.device) -> torch.Tensor:
+    """gradient.WEIGHTS[t] = 1024 - i * 1024 / t, made on the device (a
+    copy from the host would synchronize the stream)."""
+    return 1024 - torch.arange(t, dtype=torch.int32, device=dev) * (1024 // t)
+
+
+def _grad_pass_plain(planes: torch.Tensor, claims: torch.Tensor, sx: int,
+                     sy: int, reject_factor: int) -> torch.Tensor:
+    """One gradient pass (`jax_scoring.gradient_pass_device`) over planes
+    [B, 3, H, W] i32 and claims [B, 3, H, W] bool -> accept [B, nty, ntx]
+    bool of the (1<<sx) x (1<<sy) pass; claims take the accepted tiles."""
+    tw, th = 1 << sx, 1 << sy
+    B, _, h, w = planes.shape
+    ntx, nty = w // tw, h // th
+    dev = planes.device
+    # the corner grid clamps at each image's last row and column (a band's
+    # halo row is its last row: jax_scoring.gradient_pass_device)
+    xs = torch.arange(0, (ntx + 1) * tw, tw, device=dev).clamp(max=w - 1)
+    ys = torch.arange(0, (nty + 1) * th, th, device=dev).clamp(max=h - 1)
+    corners = planes[:, :, ys[:, None], xs[None, :]]   # [B, 3, nty+1, ntx+1]
+    c00, c01 = corners[:, :, :nty, :ntx], corners[:, :, :nty, 1:]
+    c10, c11 = corners[:, :, 1:, :ntx], corners[:, :, 1:, 1:]
+    pix = planes[:, :, :nty * th, :ntx * tw].reshape(B, 3, nty, th, ntx, tw)
+    pix = pix.permute(0, 1, 2, 4, 3, 5)         # [B, 3, nty, ntx, th, tw]
+    lf = _grad_weights(tw, dev).reshape(1, 1, 1, 1, 1, tw)
+    tf = _grad_weights(th, dev).reshape(1, 1, 1, 1, th, 1)
+
+    def blends(a, b, c, d):
+        # int32 suffices: blends peak at 255*1024*1024 + 2^19 < 2^31
+        top = a[..., None, None] * lf + b[..., None, None] * (1024 - lf)
+        bot = c[..., None, None] * lf + d[..., None, None] * (1024 - lf)
+        num = top * tf + bot * (1024 - tf)
+        return (num + ROUNDING) >> 20, num >> 20
+
+    ok = torch.zeros((B, nty, ntx), dtype=torch.bool, device=dev)
+    for rnd in (lambda v: v, _round6, _round6p):
+        for bl in blends(rnd(c00), rnd(c01), rnd(c10), rnd(c11)):
+            ok |= ((pix - bl).abs() <= reject_factor).all(-1).all(-1).all(1)
+    origins = claims[:, :, ::th, ::tw][:, :, :nty, :ntx]
+    accept = ok & ~origins.any(1)
+    up = accept[:, :, None, :, None].expand(B, nty, th, ntx, tw)
+    claims[:, :, :nty * th, :ntx * tw] |= up.reshape(B, 1, nty * th, ntx * tw)
+    return accept
+
+
+def grad_score_len(h: int, w: int) -> int:
+    """G, the packed accepts' length per image: the 7 passes' grids,
+    (h >> sy) * (w >> sx) each, in `swizzle.GRADIENT_PASS_ORDER`."""
+    return sum((h >> sy) * (w >> sx)
+               for (sx, sy) in swizzle.GRADIENT_PASS_ORDER)
+
+
+def grad_score_plain(planes: torch.Tensor, claims: torch.Tensor,
+                     reject_factor: int) -> torch.Tensor:
+    """The encoder's gradient stage (`jax_scoring.gradient_all_device`):
+    planes [B, 3, H, W] i32, claims [B, 3, H, W] bool -> the 7 passes'
+    accept grids in `swizzle.GRADIENT_PASS_ORDER`, each [B, nty, ntx]
+    flattened, packed as [B, G] u8 (G = grad_score_len(H, W)); each pass's
+    accepted tiles are set in all 3 channels of claims, in place, before the
+    next pass. One image [3, H, W] gives [G]."""
+    if planes.ndim == 3:
+        return grad_score_plain(planes[None], claims[None], reject_factor)[0]
+    B = planes.shape[0]
+    return torch.cat([
+        _grad_pass_plain(planes, claims, sx, sy, reject_factor).reshape(
+            B, -1).to(torch.uint8)
+        for (sx, sy) in swizzle.GRADIENT_PASS_ORDER], dim=1)
+
+
+def grad_score(planes: torch.Tensor, claims: torch.Tensor,
+               reject_factor: int) -> torch.Tensor:
+    """The gradient stage (see grad_score_plain), one launch whatever B is:
+    planes [(B,) 3, H, W] i32 holding 0..255 (the kernel's int32 blends
+    need it; it is not checked), claims [(B,) 3, H, W] bool, both
+    contiguous on one device, reject_factor an int32 -> packed accepts
+    [(B,) G] u8; claims updated in place (csrc/grad_score.cu)."""
+    dev = planes.device
+    lead = _lead(planes, "planes", 3)
+    h, w = planes.shape[-2:]
+    _expect(planes, "planes", torch.int32, lead + (3, h, w), dev)
+    _expect(claims, "claims", torch.bool, lead + (3, h, w), dev)
+    if not -2 ** 31 <= reject_factor < 2 ** 31:
+        raise ValueError(f"reject_factor {reject_factor} is not an int32")
+    if not _route(dev):
+        return grad_score_plain(planes, claims, reject_factor)
+    G = grad_score_len(h, w)
+    out = torch.empty(lead + (G,), dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        err = build.library().yaik_grad_score(
+            planes.data_ptr(), claims.data_ptr(), out.data_ptr(),
+            math.prod(lead), h, w, G, reject_factor,
+            torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "yaik_grad_score")
+    _count(grad_score, dev)
+    return out
+
+
+grad_score.launches = 0
+grad_score.per_device = {}
 
 
 # pixels per chunk of the plain versions: bounds their [pixels, E*48*8]
