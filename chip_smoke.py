@@ -140,7 +140,12 @@ against their plain versions on all six 3D passes of img512 and of the 4K
 image, on random operands (P 16-128, E up to 128, wild dead pixels in mixed
 tiles), on patterns with ties and on a bank no tile takes; the encode run
 shows `score48_mode` and `values48` launched once per 3D pass and the sums
-form `score48` not at all.
+form `score48` not at all. The gradient stage's kernel (`grad_score`) is
+held against its plain version on img512, the 4K image, the 2048² sheet,
+seeded edge shapes with and without random claims, batches of 4 and 8,
+and reject factors 0, 3, 40 and -1, 255, 300, 2^31 - 1 (the ends of the
+wrapper's clamp and past them), then timed at 4K in turns with its plain
+version and with its earlier design (tests/grad_score_cta.cu, built alone).
 Then the decodes, the encode and each kernel against its plain version are
 timed with CUDA events (`score48_mode` and `values48` on all six 4K
 passes, the sums form and the plain versions on the 4x4 pass, beside the
@@ -162,9 +167,10 @@ CUDA kernels (table packing, decision, idx).
 
 The last lines are the card as nvidia-smi names it, one JSON line with the
 kernels (time, plain time, the card's least time for the same work and what
-bounds it; each kernel's launches summed over the main-path runs, for the
-encode kernels the `encode_image` runs and the batch encode runs, for
-`covers` and `covers2d` the mining run), and
+bounds it, the earlier design's time where one is kept; each kernel's
+launches summed over the main-path runs, for the encode kernels the
+`encode_image` runs and the batch encode runs, for `covers` and `covers2d`
+the mining run), and
 `{"ok": true, "device": {...}}`. Any failure raises, and the
 script exits non-zero; so does a run without a GPU, where it prints no
 result.
@@ -360,6 +366,7 @@ def main() -> int:
     import yaik_tpu_torch
     from PIL import Image
     import torch_covers
+    import torch_time_grad_score as time_grad_score
     from torch_streams import (craft_t3_stream, d1_operands, digest,
                                ramp_planes, saturated_planes, synth_t2_pass)
     from yaik_tpu_torch import native
@@ -774,6 +781,18 @@ def main() -> int:
         check_grad(f"B = 4 seeded ramps 136x264, random claims, "
                    f"reject_factor {rf}", p,
                    torch.from_numpy(grng.random(p.shape) < 0.03).to(dev), rf)
+    # the reject factor at the ends of the wrapper's clamp to [-1, 255] and
+    # past them (the plain version takes it as it is), on the batch and on
+    # a band's 16k + 1 rows with w % 16 == 8
+    edge = torch.from_numpy(ramp_planes(grng, 1, 545, 264)[0]).to(dev)
+    for rf in (-1, 255, 300, 2 ** 31 - 1):
+        check_grad(f"B = 4 seeded ramps 136x264, random claims, "
+                   f"reject_factor {rf}", p,
+                   torch.from_numpy(grng.random(p.shape) < 0.03).to(dev), rf)
+        check_grad(f"seeded ramps 545x264, random claims, reject_factor "
+                   f"{rf}", edge,
+                   torch.from_numpy(grng.random(edge.shape) < 0.03).to(dev),
+                   rf)
     p = ebatch._upload([np.roll(images["img512"] if i % 2 else
                                np.asarray(Image.open(FIX / "img512b.png")),
                                8 * i, axis=i % 2) for i in range(8)], dev)
@@ -2008,6 +2027,7 @@ def main() -> int:
     lap("4")
     # -- phase 4: timing ---------------------------------------------------
     kms = {}
+    earlier_ms = {}   # the earlier design's ms, where one is kept
     for n in streams:
         stream = streams[n]
         t = time.perf_counter()
@@ -2383,30 +2403,50 @@ def main() -> int:
                 kms[name] = ((k1 + k2) / 2, (p1 + p2) / 2)
                 bounds[name] = b[name]
 
-    # grad_score on the 4K image against its plain version, each call on
-    # zeroed claims of its own (the main path's), and the bound of its
-    # work: the planes read once, the claims read and written, the accepts
-    # written; 39 int32 operations per (pixel, channel, pass): the three
-    # bilinear numerators' 18 multiply(-add)s, 3 rounding adds, 6 shifts,
-    # 6 subtracts and 6 compares
+    # grad_score on the 4K image against its plain version and against the
+    # kernel's earlier design (tests/grad_score_cta.cu, built alone: a CTA
+    # per block, a thread a pixel), each call on zeroed claims of its own
+    # (the main path's), in turns; and the bound of its work: the planes
+    # read once, the claims read and written, the accepts written; 12 int32
+    # operations per (pixel, channel, pass), per blend variant the
+    # numerator's step, the add of the pixel's term, a min and a max
+    # (grad_score.cu's header note)
     planes4k = planes_of(img4k, dev)
+    earlier, earlier_ptxas = time_grad_score.alone_library(
+        time_grad_score.EARLIER, "earlier_grad_score")
+    for line in earlier_ptxas:
+        print(f"  ptxas (the earlier grad_score design): {line}")
 
     def on_fresh_claims(fn, n):
         pool = iter([zeros_like(planes4k) for _ in range(n)])
         return lambda: fn(planes4k, next(pool), 3)
+
+    def earlier_call(planes, claims, rf):
+        return time_grad_score.alone_call(earlier, planes, claims, rf)
+    c_e, c_p = zeros_like(planes4k), zeros_like(planes4k)
+    if not (torch.equal(earlier_call(planes4k, c_e, 3),
+                        kernels.grad_score_plain(planes4k, c_p, 3))
+            and torch.equal(c_e, c_p)):
+        raise AssertionError("the earlier grad_score design differs from "
+                             "the plain version at 4K")
+    del c_e, c_p
     p1 = cuda_ms(on_fresh_claims(kernels.grad_score_plain, 4), 3,
                  queued=False)
+    e1 = cuda_ms(on_fresh_claims(earlier_call, 23), 20)
     k1 = cuda_ms(on_fresh_claims(kernels.grad_score, 23), 20)
     k2 = cuda_ms(on_fresh_claims(kernels.grad_score, 23), 20)
+    e2 = cuda_ms(on_fresh_claims(earlier_call, 23), 20)
     p2 = cuda_ms(on_fresh_claims(kernels.grad_score_plain, 4), 3,
                  queued=False)
+    earlier_ms["grad_score"] = (e1 + e2) / 2
     claims = zeros_like(planes4k)
     out = kernels.grad_score(planes4k, claims, 3)
     h4, w4 = img4k.shape[:2]
     px_passes = sum(((h4 >> sy) << sy) * ((w4 >> sx) << sx)
                     for (sx, sy) in swizzle.GRADIENT_PASS_ORDER)
+    grad_ops = px_passes * time_grad_score.OPS_PER_PIXEL_PASS
     bounds["grad_score"] = bound([planes4k, claims], [claims, out],
-                                 px_passes * 3 * 39, "i32")
+                                 grad_ops, "i32")
     # the gradient stage as the encode path calls it launches grad_score and
     # nothing else: no per-pass torch op is left
     _, nl, rows = kernel_sum(on_fresh_claims(scoring.gradient_packed, 4))
@@ -2418,14 +2458,17 @@ def main() -> int:
     plain_dev, plain_n, _ = kernel_sum(on_fresh_claims(
         kernels.grad_score_plain, 4))
     kms["grad_score"] = ((k1 + k2) / 2, (p1 + p2) / 2)
+    gb = bounds["grad_score"][0]
     print(f"time grad_score bench_4k 3840x2160: kernel {k1:.4f} / {k2:.4f} "
-          f"ms, plain {p1:.4f} / {p2:.4f} ms back to back (plain, kernel, "
-          f"kernel, plain; its kernels {plain_dev:.3f} ms of device time in "
-          f"{plain_n} launches); bound {bounds['grad_score'][0]:.4f} ms "
-          f"({bounds['grad_score'][1]}, {px_passes * 3 * 39:.4g} operations, "
+          f"ms, the earlier design {e1:.4f} / {e2:.4f} ms, plain {p1:.4f} / "
+          f"{p2:.4f} ms back to back (plain, earlier, kernel, kernel, "
+          f"earlier, plain; the plain version's kernels {plain_dev:.3f} ms "
+          f"of device time in {plain_n} launches); bound {gb:.4f} ms "
+          f"({bounds['grad_score'][1]}, {grad_ops:.4g} operations, "
           f"{nbytes(planes4k, claims, claims, out) / 1e6:.1f} MB), "
-          f"{bounds['grad_score'][0] / kms['grad_score'][0]:.0%} of it; "
-          f"{int(out.sum())} of {out.numel()} tiles accepted [{card}]")
+          f"{gb / kms['grad_score'][0]:.0%} of it (the earlier design "
+          f"{gb / earlier_ms['grad_score']:.0%}); {int(out.sum())} of "
+          f"{out.numel()} tiles accepted [{card}]")
     del planes4k, claims, out
 
     # the batch encode path (phase 3d's images): device scoring per 512^2
@@ -2647,7 +2690,9 @@ def main() -> int:
          "ms": kms[name][0], "plain_ms": kms[name][1],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          # no single PyTorch call computes any of these functions
-         "library_ms": None}
+         "library_ms": None,
+         # the kernel's earlier design in the same turns, where one is kept
+         "earlier_design_ms": earlier_ms.get(name)}
         for name, (src, rep) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -244,11 +244,26 @@ def test_grad_score_kernel_vs_plain_round6p_clamp(cuda):
     assert got.any()
 
 
-@pytest.mark.parametrize("rf", [0, 3, 40])
+@pytest.mark.parametrize("h,w", [(40, 56), (88, 64), (64, 88), (545, 512),
+                                 (3, 5), (1, 17)])
+@pytest.mark.parametrize("rf", [-1, 255, 300, 2 ** 31 - 1])
+def test_grad_score_kernel_vs_plain_reject_factor_edges(cuda, h, w, rf):
+    """The reject factor at the ends of the wrapper's clamp to [-1, 255]
+    and past it, on seeded ramps at h or w % 16 == 8, a band's 16k + 1
+    rows and shapes below a tile, with random claims: the plain version
+    takes the factor as it is."""
+    rng = np.random.default_rng(h * 10007 + w)
+    planes = torch.from_numpy(ramp_planes(rng, 1, h, w)[0]).to(cuda)
+    got = _check_grad_score(planes, torch.from_numpy(
+        rng.random(planes.shape) < 0.03).to(cuda), rf)
+    assert got.any() == (rf >= 0 and min(h, w) >= 4)
+
+
+@pytest.mark.parametrize("rf", [0, 3, 40, -1, 255, 300, 2 ** 31 - 1])
 def test_grad_score_kernel_vs_plain_batch(cuda, rf):
     """B = 4 with random claims: one launch for the batch, each image's
     accepts and claims equal to its own call's."""
-    rng = np.random.default_rng(rf)
+    rng = np.random.default_rng(rf & 0xFFFF)
     planes = torch.from_numpy(ramp_planes(rng, 4, 136, 264)).to(cuda)
     claims = torch.from_numpy(rng.random(planes.shape) < 0.03).to(cuda)
     got = _check_grad_score(planes, claims, rf)

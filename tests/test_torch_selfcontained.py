@@ -128,14 +128,21 @@ def _forbidden(name: str) -> bool:
 
 def test_no_port_file_imports_the_jax_package():
     """No module of yaik_tpu_torch, nor chip_smoke.py, nor a tests/ helper
-    chip_smoke.py imports, imports yaik_tpu (or jax), at any depth of the
-    file (function-level imports included)."""
+    chip_smoke.py imports (directly or through another helper), imports
+    yaik_tpu (or jax), at any depth of the file (function-level imports
+    included)."""
     files = sorted((ROOT / "yaik_tpu_torch").rglob("*.py"))
     smoke = ROOT / "chip_smoke.py"
-    helpers = [ROOT / "tests" / f"{n}.py" for n in _imports(smoke)
-               if (ROOT / "tests" / f"{n}.py").exists()]
-    assert sorted(h.name for h in helpers) == ["torch_covers.py",
-                                               "torch_streams.py"]
+    helpers, todo = [], [smoke]
+    while todo:
+        for n in _imports(todo.pop()):
+            path = ROOT / "tests" / f"{n}.py"
+            if path.exists() and path not in helpers:
+                helpers.append(path)
+                todo.append(path)
+    assert sorted(h.name for h in helpers) == [
+        "torch_covers.py", "torch_streams.py", "torch_time_covers.py",
+        "torch_time_grad_score.py"]
     names = {str(f.relative_to(ROOT / "yaik_tpu_torch")) for f in files}
     assert {"__main__.py", "utils/profiler.py", "utils/stats.py",
             "utils/debug_dump.py", "decoder/reference.py",

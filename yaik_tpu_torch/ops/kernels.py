@@ -23,7 +23,10 @@ Counterpart of `yaik_tpu/ops/pallas_kernels.py` for the device decode
 - `grad_score` (csrc/grad_score.cu) replaces no Pallas kernel: it computes
   the encoder's gradient stage, the 7 gradient passes with claims evolving
   between them, in one launch, XLA on the TPU
-  (`yaik_tpu/encoder/jax_scoring.py` `gradient_all_device`);
+  (`yaik_tpu/encoder/jax_scoring.py` `gradient_all_device`): a warp per
+  16x16 block and image, a lane a column of 8 rows, each blend's
+  numerator stepped down the column and each blend test a range check on
+  the least and greatest of the lane's values;
 - `covers` and `covers2d` (csrc/covers.cu) replace no Pallas kernel: they
   compute the LUT-bank miner's coverage matrices, XLA on the TPU
   (`yaik_tpu/encoder/mining.py` `_covers_device`, `_covers2d_device`).
@@ -609,6 +612,10 @@ def grad_score(planes: torch.Tensor, claims: torch.Tensor,
     _expect(claims, "claims", torch.bool, lead + (3, h, w), dev)
     if not -2 ** 31 <= reject_factor < 2 ** 31:
         raise ValueError(f"reject_factor {reject_factor} is not an int32")
+    # exact: a blend and a pixel both lie in 0..255, so any factor >= 255
+    # accepts every blend and any factor < 0 none; the kernel's range checks
+    # take [-1, 255] (span (2 rf + 1) << 20 stays an int32, -1 gives none)
+    reject_factor = min(max(reject_factor, -1), 255)
     if not _route(dev):
         return grad_score_plain(planes, claims, reject_factor)
     G = grad_score_len(h, w)
