@@ -131,6 +131,17 @@ counting each kernel's launches against what the operands call for:
   16-image `encode_corpus` over `[cuda:0] * 2`, the slices dispatched
   from the calling thread and from a thread each, against
   `device="cuda:0"`, least of 3.
+- the image sides no fixture has (tests/torch_streams.py's EDGE_CROPS):
+  16 px wide (16x16, 24x16, 32x16, 128x16 of img128, 64x16 RGBA of
+  sprite256) and w % 16 == 8 (128x120, 56x72, 64x24 of img128, 96x40 RGBA
+  of sprite256): `encode_image` and `decode_image` (split and fused) on the
+  card, launches counted against what the operands call for; each stream
+  equal to `encode_image(device="cpu")`'s, to the emission's with the host
+  library off, to a second call's and to `encode_batch` of two copies;
+  each decode equal to the fused one, `decode_batch` of two copies, the
+  host decoder, the C library and tests/fixtures/edge_digests.json; and
+  `score48_mode` and `values48` against their plain versions on the
+  16-wide crops' dense operands, all six passes.
 The decode kernels are held against their plain versions on a batch too
 (B = 4: img512, img512b and the RGB of bench_rgba512 and bench_2d512, and
 random operands; each image of a batch against its own unbatched call,
@@ -2023,6 +2034,126 @@ def main() -> int:
               f"least of 3 {min(walls):.3f} s ({mpix / min(walls):.2f} "
               f"MPix/s), walls {' '.join(f'{w:.3f}' for w in walls)} s; "
               f"pixels / bytes equal to phase 3c's / 3d's [{card}]")
+
+    lap("3k")
+    # -- phase 3k: edge shapes, the image sides no fixture has
+    # (tests/torch_streams.py's EDGE_CROPS): 16 px wide, where the 16-wide
+    # 3D pass has one tile column, and w % 16 == 8 or h % 16 == 8, where
+    # the last column or row of 16-px tiles is half a tile. One run of
+    # encode_image and decode_image (split and fused) over the crops on the
+    # card, counts from 0 before it, read after; then each stream against
+    # the CPU path's, the emission with the host library off, a second call
+    # and encode_batch of two copies, each decode against decode_batch, the
+    # host decoder, the C library and tests/fixtures/edge_digests.json (the
+    # JAX package's reference decode of its Python-emission stream); and
+    # score48_mode and values48 against their plain versions on the 16-wide
+    # crops' dense operands, all six passes ----------------------------------
+    from torch_streams import EDGE_CROPS, edge_crop
+    from yaik_tpu_torch.native import capi
+    edge_want = json.loads((FIX / "edge_digests.json").read_text())
+    edge_imgs = {n: edge_crop(n) for n in EDGE_CROPS}
+    edge_kernels = DECODE_KERNELS + ENCODE_KERNELS
+    for name in edge_kernels:
+        getattr(kernels, name).launches = 0
+    t = time.perf_counter()
+    edge_enc = {n: yaik_tpu_torch.encode_image(im, bank3d, device="cuda")
+                for n, im in edge_imgs.items()}
+    edge_px = {(n, form): yaik_tpu_torch.decode_image(s, bank, device="cuda",
+                                                      **flags)
+               for n, s in edge_enc.items()
+               for form, flags in (("split", {}), ("fused", fused_flags))}
+    edge_s = time.perf_counter() - t
+    edge_launches = {name: getattr(kernels, name).launches
+                     for name in edge_kernels}
+    edge_args = [pack.plan_to_args(planner.build_plan(
+        s, bank.expanded, bank.expanded2d), lut, dtabs.lut2)
+        for s in edge_enc.values()]
+    n_edge = len(edge_imgs)
+    want = {**total(edge_args), "grad_score": n_edge, "score48": 0,
+            "score48_mode": 6 * n_edge, "values48": 6 * n_edge}
+    for name, k in total(edge_args, **fused_flags).items():
+        want[name] += k
+    print(f"launches in the edge-shape run ({n_edge} encodes, "
+          f"{2 * n_edge} decodes, {edge_s:.2f} s): {edge_launches}")
+    if edge_launches != want:
+        raise AssertionError(f"edge-shape launches {edge_launches}, the "
+                             f"operands call for {want}")
+    for name in ("grad_score", "score48_mode", "values48", "grad_plane",
+                 "grad_plane_final", "t3_merged", "t3_merged_d1"):
+        if edge_launches[name] == 0:
+            raise AssertionError(f"{name} was not launched by the "
+                                 "edge-shape run")
+    for name, k in edge_launches.items():
+        launches[name] += k
+    clib = capi.CLibrary()
+    clib.assign_lut((FIX / "LutFile.lut").read_bytes())
+    clib.assign_lut((FIX / "LutFile2D.lut").read_bytes())
+    host_lib = native.available
+    for n, img in edge_imgs.items():
+        stream = edge_enc[n]
+        native.available = lambda: False
+        try:
+            no_native = yaik_tpu_torch.encode_image(img, bank3d,
+                                                    device="cuda")
+        finally:
+            native.available = host_lib
+        others = {
+            "encode_image(device=\"cpu\")": [yaik_tpu_torch.encode_image(
+                img, bank3d, device="cpu")],
+            "the host library off": [no_native],
+            "a second call": [yaik_tpu_torch.encode_image(img, bank3d,
+                                                          device="cuda")],
+            "encode_batch of two copies": ebatch.encode_batch(
+                [img, img.copy()], bank3d, device="cuda")}
+        bad = [k for k, v in others.items() if v != [stream] * len(v)]
+        px = edge_px[n, "split"]
+        decodes = {"fused": [edge_px[n, "fused"]],
+                   "decode_batch of two copies": list(batch.decode_batch(
+                       [stream, stream], bank, device="cuda")),
+                   "the host decoder": [yaik_tpu_torch.decode_image(
+                       stream, bank, engine="host")],
+                   "the C library": [clib.decode(stream)]}
+        bad += [k for k, v in decodes.items()
+                if not all(np.array_equal(px, o) for o in v)]
+        want_d = edge_want[n]
+        if digest(px) != {"shape": want_d["shape"],
+                          "sha256": want_d["sha256"]}:
+            bad.append("the digest of the JAX package's reference decode")
+        print(f"encode {n} {img.shape[0]}x{img.shape[1]}x{img.shape[2]}: "
+              f"{len(stream)} bytes (the JAX package's {want_d['bytes']} "
+              f"through its own zstd), PSNR {psnr(px, img):.2f} dB; "
+              + ("bytes equal to " + ", ".join(others) + "; pixels equal "
+                 "to the split decode's by " + ", ".join(decodes)
+                 + " and the digest" if not bad
+                 else "DIFFERS from " + ", ".join(bad)))
+        if bad:
+            raise AssertionError(f"edge shape {n} differs from {bad}")
+    clib.close()
+    # the 16-wide crops' dense operands: their 16x8 pass has one tile column
+    for n in (n for n, (_, _, w) in EDGE_CROPS.items() if w == 16):
+        planes = planes_of(edge_imgs[n][..., :3], dev)
+        claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
+        scoring.gradient_all(planes, claims, 3)
+        errs = {"score48_mode": 0, "values48": 0}
+        for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
+            o = scoring.tile3d_operands(planes, claims, sx, sy)
+            alive = ~o.mask
+            mode = kernels.score48_mode(o.c, alive, tabs.qpts)
+            errs["score48_mode"] = max(errs["score48_mode"], max_abs_err(
+                mode, kernels.score48_mode_plain(o.c, alive, tabs.qpts)))
+            v_args = (o.tiles, alive, o.a_c, o.b_c, mode, o.mn, o.mx - o.mn,
+                      tabs.pts, tabs.factors)
+            errs["values48"] = max(errs["values48"], *(
+                max_abs_err(g, p) for g, p in zip(
+                    kernels.values48(*v_args),
+                    kernels.values48_plain(*v_args))))
+            scoring.tile3d_pass(planes, claims, tabs, sx, sy)
+        for name, e in errs.items():
+            err[name] = max(err[name], e)
+        print(f"kernels vs plain on {n}'s dense operands, six passes: "
+              f"max_abs_err {errs}")
+        if any(errs.values()):
+            raise AssertionError(f"kernels differ from plain on {n}: {errs}")
 
     lap("4")
     # -- phase 4: timing ---------------------------------------------------

@@ -8,6 +8,7 @@ GPU machine without it:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 """
+import json
 import pathlib
 
 import numpy as np
@@ -18,8 +19,8 @@ from PIL import Image
 
 import yaik_tpu_torch
 import torch_covers
-from torch_streams import (craft_t3_stream, d1_operands, ramp_planes,
-                           saturated_planes)
+from torch_streams import (EDGE_CROPS, craft_t3_stream, d1_operands,
+                           digest, edge_crop, ramp_planes, saturated_planes)
 from yaik_tpu.decoder import planner as plannermod
 from yaik_tpu.decoder import reference as refdec
 from yaik_tpu.encoder import bank as bankmod
@@ -282,7 +283,7 @@ def _check_scores(c, alive, qpts):
     return mode
 
 
-def _check_score_values(ops, tabs):
+def _check_score_values(ops, tabs, accepts_some=True):
     alive = ~ops.mask
     mode = _check_scores(ops.c, alive, tabs.qpts)
     args = (ops.tiles, alive, ops.a_c, ops.b_c, mode, ops.mn, ops.mx - ops.mn,
@@ -291,7 +292,7 @@ def _check_score_values(ops, tabs):
     torch.cuda.synchronize()
     for g, w in zip(got, kernels.values48_plain(*args)):
         assert torch.equal(g, w)
-    assert got[0].any()
+    assert got[0].any() or not accepts_some
 
 
 SHIFTS = [(4, 3), (3, 4), (3, 3), (3, 2), (2, 3), (2, 2)]
@@ -308,6 +309,41 @@ def test_score_values_kernels_vs_plain_4k(cuda, bank3d, image_4k):
     ops, tabs = _pass_operands(image_4k, bank3d, cuda, SHIFTS)
     for o in ops.values():
         _check_score_values(o, tabs)
+
+
+@pytest.mark.parametrize("name", [n for n, (_, _, w) in EDGE_CROPS.items()
+                                  if w == 16])
+def test_score_values_kernels_vs_plain_16_wide(cuda, bank3d, name):
+    """A 16-wide image's dense operands (its 16-wide pass has one tile
+    column, the tile block a strided view until made contiguous)."""
+    ops, tabs = _pass_operands(edge_crop(name)[..., :3], bank3d, cuda,
+                               SHIFTS)
+    for o in ops.values():
+        _check_score_values(o, tabs, accepts_some=False)
+
+
+@pytest.mark.parametrize("name", list(EDGE_CROPS))
+def test_edge_shape_encode_decode_on_card(cuda, name, bank3d, bank2d):
+    """The image sides no fixture has (16 wide, w % 16 == 8): the card's
+    stream equals the CPU path's, a second call's and encode_batch's, and
+    decodes split and fused to the digest of the JAX package's reference
+    decode of its stream (tests/fixtures/edge_digests.json)."""
+    from yaik_tpu_torch.encoder import batch
+    img = edge_crop(name)
+    names = ("score48_mode", "values48")
+    before = {n: getattr(kernels, n).launches for n in names}
+    got = yaik_tpu_torch.encode_image(img, bank3d, device=cuda)
+    after = {n: getattr(kernels, n).launches - k for n, k in before.items()}
+    assert after == {"score48_mode": 6, "values48": 6}
+    assert got == yaik_tpu_torch.encode_image(img, bank3d, device="cpu")
+    assert got == yaik_tpu_torch.encode_image(img, bank3d, device=cuda)
+    assert batch.encode_batch([img, img.copy()], bank3d,
+                              device=cuda) == [got, got]
+    want = json.loads((FIX / "edge_digests.json").read_text())[name]
+    for flags in ({}, {"t3_d1": True, "grad_final": True}):
+        px = yaik_tpu_torch.decode_image(got, bank2d, device=cuda, **flags)
+        assert digest(px) == {"shape": want["shape"],
+                              "sha256": want["sha256"]}
 
 
 @pytest.mark.parametrize("P,E", [(16, 12), (32, 12), (64, 12), (128, 12),

@@ -3,11 +3,13 @@ run time, from the port's own host modules: no jax and nothing of the JAX
 package (tests/test_round3_fastpaths.py and tests/test_device_alpha.py,
 which hold the originals, import both). tests/test_torch_families.py holds
 these copies equal to the originals. Also the pixel digest of
-tests/fixtures/port_digests.json.
+tests/fixtures/port_digests.json, and the edge-shape crops of
+tests/fixtures/edge_digests.json.
 """
 from __future__ import annotations
 
 import hashlib
+import pathlib
 import struct
 
 import numpy as np
@@ -169,3 +171,33 @@ def digest(pixels: np.ndarray) -> dict:
     tests/fixtures/port_digests.json holds them."""
     a = np.ascontiguousarray(pixels, np.uint8)
     return {"shape": list(a.shape), "sha256": hashlib.sha256(a).hexdigest()}
+
+
+# the image sides no fixture has, as top-left crops of a fixture image:
+# name -> (png, height, width). 16 px wide: the 16-wide 3D pass has one tile
+# column. w % 16 == 8 (and h % 16 == 8): the last column of 16-wide tiles
+# is half a tile, which no pass emits
+EDGE_CROPS = {
+    "img128_16x16": ("img128", 16, 16),
+    "img128_24x16": ("img128", 24, 16),
+    "img128_32x16": ("img128", 32, 16),
+    "img128_128x16": ("img128", 128, 16),
+    "sprite256_64x16": ("sprite256", 64, 16),
+    "img128_128x120": ("img128", 128, 120),
+    "img128_56x72": ("img128", 56, 72),
+    "img128_64x24": ("img128", 64, 24),
+    "sprite256_96x40": ("sprite256", 96, 40),
+}
+
+
+def crop(png: str, h: int, w: int) -> np.ndarray:
+    """The top-left [h, w, 3|4] u8 crop of tests/fixtures/<png>.png."""
+    from PIL import Image
+    img = np.asarray(Image.open(pathlib.Path(__file__).parent / "fixtures"
+                                / f"{png}.png"))
+    return np.ascontiguousarray(img[:h, :w])
+
+
+def edge_crop(name: str) -> np.ndarray:
+    """The crop EDGE_CROPS names."""
+    return crop(*EDGE_CROPS[name])

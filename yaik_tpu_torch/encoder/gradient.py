@@ -217,15 +217,19 @@ def emit_pass_fast(accept, sx, sy, w, h, corner_bytes, mapped4, claims4):
     set is a bijection of mapped_rgb at those positions). Also returns the
     chunk header's bbox."""
     bx, by, _ = swizzle.swizzle_spec(sx, sy)
+    tw, th = 1 << sx, 1 << sy
     bitmap = np.zeros(swizzle.bitmap_size_bytes(sx, sy, w, h), np.uint8)
-    acc = np.ascontiguousarray(accept, np.uint8)
+    # the library walks a [ceil(h / th), ceil(w / tw)] grid (the decode
+    # side's convention); the scorer's has floor(h / th) rows and floor(w /
+    # tw) columns, and the partial tiles it lacks are never emitted
+    acc = np.zeros((-(-h // th), -(-w // tw)), np.uint8)
+    acc[:accept.shape[0], :accept.shape[1]] = accept
     rgb_out = np.empty(int(accept.size) * 12 + 16, np.uint8)
     cnt, rlen, bb = native.emit_gtil_pass(acc, w, h, sx, sy, bx, by,
                                           corner_bytes, mapped4, claims4,
                                           bitmap, rgb_out)
     if cnt == 0:
         return None, None, 0, None
-    tw, th = 1 << sx, 1 << sy
     # header bbox incl. the reference's h = maxY - minX bug (see
     # context._gradient_bbox)
     mnx, mny = int(bb[0]) * tw, int(bb[1]) * th

@@ -180,9 +180,11 @@ def tile3d_operands_b(planes: torch.Tensor, claims: torch.Tensor, sx: int,
         s_tiles, s_mn, s_mx = tiles[src], mn[src], mx[src]
         s_alive = alive[src] & valid[:, None]
         s_pre = pre[src] & valid
+    # contiguous before normalizing: with one tile column the reshape above
+    # is a strided view, and c, a_c, b_c would keep its strides
+    s_tiles = s_tiles.contiguous()
     c, a_c, b_c = _normalize(s_tiles, s_mn, s_mx - s_mn)
-    ops = Tile3DOperands(s_tiles.contiguous(), ~s_alive, c, a_c, b_c, s_mn,
-                         s_mx, s_pre)
+    ops = Tile3DOperands(s_tiles, ~s_alive, c, a_c, b_c, s_mn, s_mx, s_pre)
     return Tile3DBatchOperands(ops, mask, mn, mx, src, valid, alive_cnt)
 
 

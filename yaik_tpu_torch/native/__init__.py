@@ -169,8 +169,16 @@ def emit_gtil_pass(accept_u8, w, h, sx, sy, bx, by, corner_bytes,
                    mapped4, claims4, bitmap_out, rgb_out):
     """One full-plane gradient pass emission (see gradient.emit_pass):
     swizzle-scan bitmap + corner-dedup byte stream + claims4 footprint,
-    all in one native call. Returns (tile_count, rgb_byte_count,
-    (min_tx, min_ty, max_tx, max_ty))."""
+    all in one native call. accept_u8 is the C-contiguous u8 grid
+    [ceil(h / th), ceil(w / tw)] the library indexes, else ValueError.
+    Returns (tile_count, rgb_byte_count, (min_tx, min_ty, max_tx,
+    max_ty))."""
+    grid = (-(-h >> sy), -(-w >> sx))
+    if (not isinstance(accept_u8, np.ndarray) or accept_u8.dtype != np.uint8
+            or accept_u8.shape != grid
+            or not accept_u8.flags.c_contiguous):
+        raise ValueError(f"accept_u8 must be a C-contiguous uint8 array of "
+                         f"shape {grid}")
     n = np.zeros(1, np.int64)
     bb = np.zeros(4, np.int32)
     cnt = library().emit_gtil_pass(
