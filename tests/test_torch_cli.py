@@ -9,8 +9,10 @@ UCOL, 2D) against `--engine device`; `decode` of the small fixture streams
 environment) against `--engine host` and the goldens; `lut` (3d, 2d);
 `stats` (text and JSON) on every fixture stream but bench_4k; `mine` (3d,
 2d) and `mine-report` of two 64x64 images against `--engine device`;
-`roundtrip`. `--profile` names the same stages as the JAX command line's
-device engines (`encode --engine device`, `decode --engine jax`),
+`roundtrip`. `--profile` names the stages of the JAX command line's
+device engines (`encode --engine device`, `decode --engine jax`), each
+under the same one of them (or none), and beside them exactly the port's
+own spans (`ENCODE_SPANS`, `DECODE_SPANS`),
 `--trace` writes a trace that parses, `YAIK_DEBUG_DUMP` writes the JAX
 device engine's claim maps, and `--device cuda` without a card fails with
 the device error. The subcommands, positional arguments and flags are the
@@ -84,11 +86,43 @@ def untimed(text: str) -> str:
     return re.sub(r" in \d+\.\d+s", " in Ts", text)
 
 
-def stage_names(text: str) -> set:
-    """The stage names of the `--profile` report that ends `text`."""
+# The port's spans beside the JAX package's stages (README, `--profile`).
+ENCODE_SPANS = {"encode:image", "encode:upload", "encode:gradient-scoring",
+                "encode:download", "zstd:job"}
+DECODE_SPANS = {"decode:image", "decode:pack", "pack:gradient", "pack:t3",
+                "pack:2dtl", "pack:d1", "pack:extras", "decode:upload",
+                "decode:dispatch", "decode:download"}
+
+
+def _stage_lines(text: str) -> list:
+    """(depth, name) of each stage line of the `--profile` report that
+    ends `text` (the lines below `total`, up to the counters)."""
     lines = text.splitlines()
     start = next(i for i, l in enumerate(lines) if l.startswith("total "))
-    return {l.split()[0] for l in lines[start + 1:]}
+    out = []
+    for line in lines[start + 1:]:
+        if not line.strip():
+            break
+        out.append(((len(line) - len(line.lstrip())) // 2, line.split()[0]))
+    return out
+
+
+def stage_names(text: str) -> set:
+    """The stage names of the `--profile` report that ends `text`."""
+    return {name for _, name in _stage_lines(text)}
+
+
+def stage_parents(text: str, among: set) -> set:
+    """(stage, its nearest enclosing stage of `among`, or "total") for each
+    stage of `among` in the report that ends `text`."""
+    path, out = [], set()
+    for depth, name in _stage_lines(text):
+        del path[depth - 1:]
+        if name in among:
+            out.add((name, next((p for p in reversed(path) if p in among),
+                                "total")))
+        path.append(name)
+    return out
 
 
 def pixels(path) -> np.ndarray:
@@ -127,7 +161,11 @@ def test_encode_equals_the_jax_cli(flags, tmp_path, monkeypatch):
     assert port["log"] == jax["log"] and "claimed total" in port["log"]
     assert json.loads(port["global"])["images"] == 2
     assert port["global"] == jax["global"]
-    assert port["stages"] == jax["stages"]
+    assert port["stages"] == jax["stages"] | ENCODE_SPANS
+    assert not jax["stages"] & ENCODE_SPANS
+    assert stage_parents(port["first"], jax["stages"]) == \
+        stage_parents(jax["first"], jax["stages"])
+    assert "\ncounters\n" in port["first"]
     assert {"encode:3d-scoring", "encode:gradient",
             "encode:zstd-flush"} <= port["stages"]
     assert ("encode:2d-scoring" in port["stages"]) == ("--enable-2d" in flags)
@@ -139,15 +177,14 @@ def test_encode_equals_the_jax_cli(flags, tmp_path, monkeypatch):
 
 
 def test_stage_is_a_no_op_when_profiling_is_off():
-    last = profiler._last[0]
-    with profiler.stage("decode:plan"):
-        assert profiler._active is None
-    assert profiler._last[0] is last          # nothing was recorded
-    with profiler.enable():
+    with profiler.enable() as prof:
         with profiler.stage("decode:plan"), profiler.stage("inner"):
             pass
-    assert profiler._active is None and profiler._last[0] is not last
-    assert stage_names(profiler.report()) == {"decode:plan", "inner"}
+    with profiler.stage("decode:plan"):
+        assert profiler._active is None
+    profiler.count("h2d_bytes", 1)
+    assert len(prof.events) == 2 and not prof.counters  # nothing recorded
+    assert stage_names(profiler.report(prof)) == {"decode:plan", "inner"}
 
 
 def test_trace_on_the_cpu(tmp_path):
@@ -207,12 +244,15 @@ def test_decode_equals_the_jax_cli(name, fused, tmp_path):
 
 def test_decode_profile_names_the_jax_engines_stages(tmp_path):
     stream = FIX / "img64.yaik"
-    want = stage_names(jax_run("decode", stream, tmp_path / "j.png",
-                               "--engine", "jax", "--profile"))
-    got = stage_names(port_run("decode", stream, tmp_path / "p.png",
-                               "--device", "cpu", "--profile"))
-    assert got == want == {"decode:plan", "decode:pack-args",
-                           "decode:device"}
+    jax_out = jax_run("decode", stream, tmp_path / "j.png", "--engine",
+                      "jax", "--profile")
+    port_out = port_run("decode", stream, tmp_path / "p.png", "--device",
+                        "cpu", "--profile")
+    want = stage_names(jax_out)
+    assert want == {"decode:plan", "decode:pack-args", "decode:device"}
+    assert stage_names(port_out) == want | DECODE_SPANS
+    assert stage_parents(port_out, want) == stage_parents(jax_out, want)
+    assert "\ncounters\n" in port_out
 
 
 # -- lut, stats ---------------------------------------------------------------

@@ -352,15 +352,17 @@ def test_stats_copy_equals_the_jax_package(name, tmp_path):
 
 def test_stage_timers_equal_the_jax_package(monkeypatch):
     """The same nested stages on the same (counting) clock give the same
-    report."""
+    report: each line's stage, depth, total, count and share (the port's
+    report adds each stage's self time)."""
     from yaik_tpu.utils import profiler as jprofiler
     from yaik_tpu_torch.utils import profiler
     reports = []
-    for mod in (profiler, jprofiler):
+    for mod, clock_name, unit in ((profiler, "now_ns", 1_000_000),
+                                  (jprofiler, "perf_counter", 1e-3)):
         clock = iter(range(0, 10_000, 7))
-        monkeypatch.setattr(mod.time, "perf_counter",
-                            lambda: next(clock) * 1e-3)
-        with mod.enable():
+        owner = mod if clock_name == "now_ns" else mod.time
+        monkeypatch.setattr(owner, clock_name, lambda: next(clock) * unit)
+        with mod.enable() as prof:
             for _ in range(2):
                 with mod.stage("decode:plan"):
                     with mod.stage("inner"):
@@ -369,9 +371,14 @@ def test_stage_timers_equal_the_jax_package(monkeypatch):
                 pass
         with mod.stage("off"):          # profiling is off again
             pass
-        reports.append(mod.report())
+        reports.append(mod.report(prof))
         monkeypatch.undo()
-    assert reports[0] == reports[1]
+
+    def lines(report):
+        return [(len(l) - len(l.lstrip()), l.split()[0], l.split()[1],
+                 next(t for t in l.split() if t.startswith("x")),
+                 l.split()[-1]) for l in report.splitlines()]
+    assert lines(reports[0]) == lines(reports[1])
     assert [l.split()[0] for l in reports[0].splitlines()] == [
         "total", "decode:plan", "inner", "decode:device"]
 

@@ -19,7 +19,8 @@ command line's `decode --engine jax` is `--engine device` here.
   python -m yaik_tpu_torch roundtrip img.png                   (encode+decode+PSNR)
 
 `--trace DIR` (encode, decode) writes a torch.profiler trace to
-DIR/trace.json; `--profile` prints the host stage timers.
+DIR/trace.json; `--profile` prints the host spans (total, self time and
+count by stage) and the transfer and zstd counters.
 """
 from __future__ import annotations
 
@@ -72,7 +73,7 @@ def cmd_encode(args):
     from yaik_tpu_torch.utils import profiler
     prof = profiler.enable() if args.profile else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with prof, _maybe_trace(args):
+    with prof as profile, _maybe_trace(args):
         stream = encode_image(img, bank, device=args.device, config=cfg,
                               bank2d=bank2d, engine=args.engine)
     dt = time.perf_counter() - t0
@@ -91,7 +92,7 @@ def cmd_encode(args):
     if args.stats:
         print(st.summary())
     if args.profile:
-        print(profiler.report())
+        print(profiler.report(profile))
 
 
 def cmd_decode(args):
@@ -104,7 +105,7 @@ def cmd_decode(args):
     from yaik_tpu_torch.utils import profiler
     prof = profiler.enable() if args.profile else contextlib.nullcontext()
     t0 = time.perf_counter()
-    with prof, _maybe_trace(args):
+    with prof as profile, _maybe_trace(args):
         img = api.decode_image(stream, lut, device=args.device,
                                t3_d1=args.t3_d1, grad_final=args.grad_final,
                                engine=args.engine)
@@ -113,7 +114,7 @@ def cmd_decode(args):
     print(f"{args.input}: {img.shape[1]}x{img.shape[0]}"
           f"{'+A' if img.shape[2] == 4 else ''} in {dt:.2f}s -> {args.output}")
     if args.profile:
-        print(profiler.report())
+        print(profiler.report(profile))
 
 
 def cmd_lut(args):

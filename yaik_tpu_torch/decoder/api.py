@@ -120,9 +120,11 @@ def decode_image(stream: bytes, lut: LutBank | bytes, device="cuda",
         return reference.decode(stream, lut.expanded, lut.expanded2d)
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}")
-    dev = device_of(device)
-    tables = _TABLES.get(lut, dev)
-    with profiler.stage("decode:plan"):
-        plan = plannermod.build_plan(stream, lut.expanded, lut.expanded2d)
-    return enginemod.decode_plan(plan, tables, t3_d1=t3_d1,
-                                 grad_final=grad_final)
+    with profiler.stage("decode:image"):
+        dev = device_of(device)
+        tables = _TABLES.get(lut, dev)
+        with profiler.stage("decode:plan"):
+            plan = plannermod.build_plan(stream, lut.expanded,
+                                         lut.expanded2d)
+        return enginemod.decode_plan(plan, tables, t3_d1=t3_d1,
+                                     grad_final=grad_final)

@@ -116,17 +116,38 @@ class Tables:
         dev = device_of(device)
         lut = pack.lut_table(expanded)
         if expanded2d is None:
-            return cls(lut, torch.from_numpy(lut.tab).to(dev))
+            return cls(lut, to_card(lut.tab, dev))
         lut2 = pack.lut2d_table(expanded2d)
-        return cls(lut, torch.from_numpy(lut.tab).to(dev), lut2,
-                   torch.from_numpy(pack.lut2d_table3(lut2)).to(dev))
+        return cls(lut, to_card(lut.tab, dev), lut2,
+                   to_card(pack.lut2d_table3(lut2), dev))
+
+
+def to_card(a: np.ndarray, device) -> torch.Tensor:
+    """A numpy array as a tensor on `device`: every host-to-device copy of
+    the port goes through here, counted as `h2d_bytes` and `h2d_copies`
+    while a profile records (the bytes a copy to the CPU would move, too)."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if profiler.on():
+        profiler.count("h2d_bytes", t.numel() * t.element_size())
+        profiler.count("h2d_copies")
+    return t.to(device)
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host (waiting for the device that
+    writes it): every device-to-host copy of the port goes through here,
+    counted as `d2h_bytes` and `d2h_copies` while a profile records."""
+    if profiler.on():
+        profiler.count("d2h_bytes", t.numel() * t.element_size())
+        profiler.count("d2h_copies")
+    return t.cpu().numpy()
 
 
 def upload(args: pack.DecodeArgs, device) -> pack.DecodeArgs:
     """The same operands as torch tensors on `device`."""
     dev = device_of(device)
-    return args.map(lambda a: torch.from_numpy(
-        np.ascontiguousarray(a)).to(dev))
+    with profiler.stage("decode:upload"):
+        return args.map(lambda a: to_card(a, dev))
 
 
 def channel_mask(v: torch.Tensor) -> torch.Tensor:
@@ -281,8 +302,11 @@ def decode_plan(plan: plannermod.DecodePlan, tables: Tables,
         args = upload(pack.plan_to_args(plan, tables.lut, tables.lut2,
                                         **forms), tables.tab.device)
     with profiler.stage("decode:device"):
-        out = decode_core(args, tables, t3_d1=t3_d1, grad_final=grad_final)
-        return out[: plan.height, : plan.width].cpu().numpy()
+        with profiler.stage("decode:dispatch"):
+            out = decode_core(args, tables, t3_d1=t3_d1,
+                              grad_final=grad_final)
+        with profiler.stage("decode:download"):
+            return to_host(out[: plan.height, : plan.width])
 
 
 def decode_plnt_plane(luts: torch.Tensor, codes: torch.Tensor,

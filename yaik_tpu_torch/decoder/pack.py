@@ -45,6 +45,7 @@ from yaik_tpu_torch.encoder.plnt import (curves_from, diff_range_decode,
                                          min_range_decode)
 from yaik_tpu_torch.entropy import zstd_backend as zstd
 from yaik_tpu_torch.format import swizzle
+from yaik_tpu_torch.utils import profiler
 
 GRAD_SHIFTS = tuple(swizzle.GRADIENT_PASS_ORDER)
 T3_SHIFTS = tuple(swizzle.TILE3D_PASS_ORDER)
@@ -544,30 +545,40 @@ def plan_to_args(plan: plannermod.DecodePlan, lut: LutTable,
     for name, form in (("t3_form", t3_form), ("t2_form", t2_form)):
         if form not in FORMS:
             raise ValueError(f"{name} must be one of {FORMS}, not {form!r}")
-    corners, code4 = grad_operands(plan)
-    layers = None if t3_form == "passes" else t3_merge_layers(plan, lut)
-    if layers is None and t3_form == "merged":
-        raise ValueError("merged T3 forced, but the tiles need a third "
-                         "priority layer")
-    t3_passes = t3_pass_operands(plan, lut) if layers is None else None
-    idx16, cols, accept, rows = layers or (None,) * 4
-    t2_layers = t2_passes = None
-    if plan.tile2d:
-        if lut2 is None:
-            raise ValueError("plan carries 2DTL passes but no 2D LUT given")
-        if t2_form != "passes":
-            t2_layers = t2_merge_layers(plan, lut2)
-        if t2_layers is None and t2_form == "merged":
-            raise ValueError("merged 2DTL forced, but the tiles need a "
-                             "third priority layer")
-        if t2_layers is None:
-            t2_passes = t2_pass_operands(plan, lut2)
-    prm, codes4, wm2 = pack_d1_blocks(plan)
+    with profiler.stage("decode:pack"):
+        with profiler.stage("pack:gradient"):
+            corners, code4 = grad_operands(plan)
+        with profiler.stage("pack:t3"):
+            layers = (None if t3_form == "passes"
+                      else t3_merge_layers(plan, lut))
+            if layers is None and t3_form == "merged":
+                raise ValueError("merged T3 forced, but the tiles need a "
+                                 "third priority layer")
+            t3_passes = (t3_pass_operands(plan, lut) if layers is None
+                         else None)
+        idx16, cols, accept, rows = layers or (None,) * 4
+        t2_layers = t2_passes = None
+        with profiler.stage("pack:2dtl"):
+            if plan.tile2d:
+                if lut2 is None:
+                    raise ValueError("plan carries 2DTL passes but no 2D "
+                                     "LUT given")
+                if t2_form != "passes":
+                    t2_layers = t2_merge_layers(plan, lut2)
+                if t2_layers is None and t2_form == "merged":
+                    raise ValueError("merged 2DTL forced, but the tiles "
+                                     "need a third priority layer")
+                if t2_layers is None:
+                    t2_passes = t2_pass_operands(plan, lut2)
+        with profiler.stage("pack:d1"):
+            prm, codes4, wm2 = pack_d1_blocks(plan)
+        with profiler.stage("pack:extras"):
+            overlay, pgrad = overlay_operands(plan), pgrad_operands(plan)
+            alpha = alpha_operands(plan)
     return DecodeArgs(plan.height, plan.width, corners, code4, idx16, cols,
                       accept, rows, prm, codes4, wm2, t3_passes=t3_passes,
-                      overlay=overlay_operands(plan),
-                      pgrad=pgrad_operands(plan), t2_layers=t2_layers,
-                      t2_passes=t2_passes, alpha=alpha_operands(plan))
+                      overlay=overlay, pgrad=pgrad, t2_layers=t2_layers,
+                      t2_passes=t2_passes, alpha=alpha)
 
 
 def uniform_forms(plans: list, args: list, lut: LutTable,

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from yaik_tpu_torch import native
-from yaik_tpu_torch.decoder.engine import device_of
+from yaik_tpu_torch.decoder.engine import device_of, to_card
 from yaik_tpu_torch.encoder import alpha as alphamod
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder import (corr2d, corr3d, dyn1d, emit, gradient,
@@ -86,10 +86,12 @@ def score_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
     cfg = config or EncoderConfig()
     _check(rgb)
     dev = device_of(device)
-    planes = torch.from_numpy(np.ascontiguousarray(_planes(rgb))).to(dev)
+    with profiler.stage("encode:upload"):
+        planes = to_card(_planes(rgb), dev)
     claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
-    accepts = pipeline.run_gradient_scoring(planes, claims,
-                                            cfg.reject_factor, plain)
+    with profiler.stage("encode:gradient-scoring"):
+        accepts = pipeline.run_gradient_scoring(planes, claims,
+                                                cfg.reject_factor, plain)
     with profiler.stage("encode:3d-scoring"):
         t3 = pipeline.run_tile3d_scoring(planes, claims,
                                          tables.device_tables(bank, dev),
@@ -334,11 +336,13 @@ def encode_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
     cfg = config or EncoderConfig()
     _check(rgb)
     _check_bank2d(cfg, bank2d)
-    if engine == "host":
-        with profiler.stage("encode:gradient"):
-            accepts = host_gradient_accepts(rgb, cfg.reject_factor)
-        return emit_image(rgb, accepts, None, cfg, bank2d=bank2d, bank=bank)
-    if engine != "device":
+    if engine not in ("host", "device"):
         raise ValueError(f"unknown engine {engine!r}")
-    accepts, t3 = score_image(rgb, bank, device, cfg)
-    return emit_image(rgb, accepts, t3, cfg, bank2d=bank2d)
+    with profiler.stage("encode:image"):
+        if engine == "host":
+            with profiler.stage("encode:gradient"):
+                accepts = host_gradient_accepts(rgb, cfg.reject_factor)
+            return emit_image(rgb, accepts, None, cfg, bank2d=bank2d,
+                              bank=bank)
+        accepts, t3 = score_image(rgb, bank, device, cfg)
+        return emit_image(rgb, accepts, t3, cfg, bank2d=bank2d)

@@ -67,7 +67,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from yaik_tpu_torch.decoder.engine import CARD, device_of, devices_of
+from yaik_tpu_torch.decoder.engine import (CARD, device_of, devices_of,
+                                           to_card, to_host)
 from yaik_tpu_torch.encoder import api, pipeline, scoring
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder.context import EncoderConfig, _ZstdBatch
@@ -116,9 +117,9 @@ class _Precomputed:
 def _upload(imgs: list, dev: torch.device) -> torch.Tensor:
     """[B, 3, H, W] i32 planes on `dev`, sent as u8 (a quarter of the
     bytes) and widened there."""
-    stacked = np.ascontiguousarray(np.stack(
-        [im[:, :, :3].transpose(2, 0, 1) for im in imgs]))
-    return torch.from_numpy(stacked).to(dev).to(torch.int32)
+    with profiler.stage("encode:upload"):
+        stacked = np.stack([im[:, :, :3].transpose(2, 0, 1) for im in imgs])
+        return to_card(stacked, dev).to(torch.int32)
 
 
 def _score_gradients(planes: torch.Tensor, cfg: EncoderConfig):
@@ -154,18 +155,20 @@ class _InFlight:
 
     def wait(self) -> np.ndarray:
         """The blob on the host (waits for the card)."""
-        return self.blob.cpu().numpy()
+        with profiler.stage("encode:drain"):
+            return to_host(self.blob)
 
 
 def _dispatch_batch(chunk: list, imgs: list, cfg: EncoderConfig, tables,
                     caps: tuple, perms: list) -> _InFlight:
     """Upload one batch and queue its gradient and compacted 3D scoring;
     returns before the card has finished (on the CPU, after)."""
-    planes = _upload(imgs, perms[0].device)
-    packed_g, claims = _score_gradients(planes, cfg)
-    blob = torch.cat([packed_g, pipeline._tile3d_all_compact(
-        planes, claims, tables, perms, caps)], dim=1)
-    return _InFlight(chunk, imgs, caps, tables, perms, blob)
+    with profiler.stage("encode:dispatch"):
+        planes = _upload(imgs, perms[0].device)
+        packed_g, claims = _score_gradients(planes, cfg)
+        blob = torch.cat([packed_g, pipeline._tile3d_all_compact(
+            planes, claims, tables, perms, caps)], dim=1)
+        return _InFlight(chunk, imgs, caps, tables, perms, blob)
 
 
 def _dispatch_split(chunks: list, imgs: list, cfg: EncoderConfig,
@@ -199,11 +202,14 @@ def _emit_from_unpacked(imgs: list, packed: np.ndarray, per_pass: list,
           "count": res["count"][i], "rows": res["rows"][i]}
          for res in per_pass]) for i in range(len(imgs))]
     if emit_workers > 1 and len(imgs) > 1:
+        here = profiler.current()
+
         def emit_one(i):
-            zb = _ZstdBatch()
-            mk = pres[i].emit(imgs[i], cfg, defer=zb)
-            zb.run()
-            return mk()
+            with profiler.stage("emit:image", parent=here):
+                zb = _ZstdBatch()
+                mk = pres[i].emit(imgs[i], cfg, defer=zb)
+                zb.run()
+                return mk()
 
         with ThreadPoolExecutor(emit_workers) as pool:
             return list(pool.map(emit_one, range(len(imgs))))
@@ -338,30 +344,32 @@ def encode_corpus(images, bank: bankmod.Bank,
             f"encode_corpus(devices=...): batch_size {batch_size} must be "
             f"a multiple of the {len(devs)} devices")
     imgs = _checked(images, cfg)
-    results: list = [None] * len(imgs)
-    groups: dict = {}
-    for i, im in enumerate(imgs):
-        groups.setdefault(im.shape, []).append(i)
-    inflight: deque = deque()
-    for shape, idxs in groups.items():
-        h, w = shape[:2]
-        if h * w > max_pix:
-            _banded_each(imgs, idxs, bank, cfg, devs, max_pix, results)
-            continue
-        key = (h, w, cfg.reject_factor)
-        base_caps = pipeline.pass_caps(w, h, cap_frac, dcap_frac)
-        states = _device_states(bank, devs, w, h)
-        per = _per_dispatch(h, w, batch_size // len(devs), max_pix)
-        step = per * len(devs)
-        for s in range(0, len(idxs), step):
-            inflight.append(_dispatch_split(
-                pbatch.split(idxs[s:s + step], len(devs)), imgs, cfg, states,
-                _CAP_STATE.get(key, base_caps)))
-            if len(inflight) > 1:
-                _drain_split(inflight.popleft(), cfg, emit_workers, results)
-    while inflight:
-        _drain_split(inflight.popleft(), cfg, emit_workers, results)
-    return results
+    with profiler.stage("encode:corpus"):
+        results: list = [None] * len(imgs)
+        groups: dict = {}
+        for i, im in enumerate(imgs):
+            groups.setdefault(im.shape, []).append(i)
+        inflight: deque = deque()
+        for shape, idxs in groups.items():
+            h, w = shape[:2]
+            if h * w > max_pix:
+                _banded_each(imgs, idxs, bank, cfg, devs, max_pix, results)
+                continue
+            key = (h, w, cfg.reject_factor)
+            base_caps = pipeline.pass_caps(w, h, cap_frac, dcap_frac)
+            states = _device_states(bank, devs, w, h)
+            per = _per_dispatch(h, w, batch_size // len(devs), max_pix)
+            step = per * len(devs)
+            for s in range(0, len(idxs), step):
+                inflight.append(_dispatch_split(
+                    pbatch.split(idxs[s:s + step], len(devs)), imgs, cfg,
+                    states, _CAP_STATE.get(key, base_caps)))
+                if len(inflight) > 1:
+                    _drain_split(inflight.popleft(), cfg, emit_workers,
+                                 results)
+        while inflight:
+            _drain_split(inflight.popleft(), cfg, emit_workers, results)
+        return results
 
 
 def _band_rows(w: int, h: int, max_pix: int = DEVICE_SCORE_MAX_PIX) -> int:
@@ -401,8 +409,8 @@ def encode_image_banded(img, bank: bankmod.Bank,
         halo = 1 if y0 + bh < h else 0
         planes = _upload([img[y0:y0 + bh + halo]], dev)
         packed_g, claims = _score_gradients(planes, cfg)
-        flat = torch.cat([packed_g, pipeline._tile3d_all(
-            planes, claims, tables)], dim=1).cpu().numpy()[0]
+        flat = to_host(torch.cat([packed_g, pipeline._tile3d_all(
+            planes, claims, tables)], dim=1))[0]
         gb = _grad_packed_len(w, bh)
         grad_parts.append([a[0] for a in _split_gradients(
             flat[None, :gb], w, bh)])
@@ -463,7 +471,7 @@ def encode_image_banded_mesh(img, bank: bankmod.Bank,
 
     parts = pbatch.over_slices(score, [
         (padded[i * bh:(i + 1) * bh + 1], d) for i, d in enumerate(devs)])
-    flat = np.concatenate([p.cpu().numpy() for p in parts])    # [n, L]
+    flat = np.concatenate([to_host(p) for p in parts])         # [n, L]
     gb = _grad_packed_len(w, bh)
     grad_accepts = [a.reshape(-1, a.shape[2])[:h >> sy] for a, (_, sy) in zip(
         _split_gradients(flat[:, :gb], w, bh), swizzle.GRADIENT_PASS_ORDER)]

@@ -17,6 +17,7 @@ from yaik_tpu_torch.entropy import zstd_backend as zstd
 from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.format.headers import (HeaderBase, HeaderGradientTile,
                                            HeaderTile3D, HeaderTile3DX)
+from yaik_tpu_torch.utils import profiler
 
 
 @dataclass
@@ -124,18 +125,29 @@ class _ZstdBatch:
         fails to compress raises here."""
         n = min(_cores() if workers is None else workers, len(self.jobs))
         if n < 2:
-            self.results = [_compress_job(j) for j in self.jobs]
+            self.results = [self._job(i) for i in range(len(self.jobs))]
             return
         results = [None] * len(self.jobs)
         slots = iter(range(len(self.jobs)))   # shared: next() holds the GIL
+        here = profiler.current()
 
         def drain():
             for i in slots:
-                results[i] = _compress_job(self.jobs[i])
+                results[i] = self._job(i, here)
 
         for f in [_pool().submit(drain) for _ in range(n)]:
             f.result()
         self.results = results
+
+    def _job(self, i: int, parent: tuple | None = None) -> bytes:
+        """Queued stream i compressed, as the span `zstd:job` (under
+        `parent` on a pool thread), counting its bytes in and out."""
+        with profiler.stage("zstd:job", parent=parent):
+            out = _compress_job(self.jobs[i])
+        if profiler.on():
+            profiler.count("zstd_in_bytes", len(self.jobs[i][0]))
+            profiler.count("zstd_out_bytes", len(out))
+        return out
 
     def get(self, h: int) -> bytes:
         return self.results[h]

@@ -27,10 +27,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from yaik_tpu_torch.decoder.engine import to_card, to_host
 from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.encoder import scoring
 from yaik_tpu_torch.encoder.emit import _scan_perm
 from yaik_tpu_torch.encoder.tables import BankTables
+from yaik_tpu_torch.utils import profiler
 
 
 def run_gradient_scoring(planes: torch.Tensor, claims: torch.Tensor,
@@ -41,7 +43,9 @@ def run_gradient_scoring(planes: torch.Tensor, claims: torch.Tensor,
     accept grids as numpy bool. Claims evolve in place."""
     h, w = planes.shape[-2:]
     packed = scoring.gradient_packed(planes, claims, reject_factor, plain)
-    return [a.numpy() for a in scoring.split_accepts(packed.cpu(), h, w)]
+    with profiler.stage("encode:download"):
+        packed = torch.from_numpy(to_host(packed))
+    return [a.numpy() for a in scoring.split_accepts(packed, h, w)]
 
 
 def tile3d_all(planes: torch.Tensor, claims: torch.Tensor,
@@ -65,9 +69,10 @@ def run_tile3d_scoring(planes: torch.Tensor, claims: torch.Tensor,
                        tables: BankTables, plain: bool = False
                        ) -> list[dict]:
     """`tile3d_all`, its results downloaded as numpy arrays."""
-    return [{k: v if k == "shift" else v.cpu().numpy()
-             for k, v in res.items()}
-            for res in tile3d_all(planes, claims, tables, plain)]
+    results = tile3d_all(planes, claims, tables, plain)
+    with profiler.stage("encode:download"):
+        return [{k: v if k == "shift" else to_host(v)
+                 for k, v in res.items()} for res in results]
 
 
 # -- a batch on the device ----------------------------------------------------
@@ -149,8 +154,8 @@ def _tile3d_all_compact(planes: torch.Tensor, claims: torch.Tensor,
 
 def scan_perms(w: int, h: int, device) -> list[torch.Tensor]:
     """Each 3D pass's scan-order tile ids (`_scan_perm`) on `device`."""
-    return [torch.from_numpy(_scan_perm(sx, sy, w, h)[1].astype(
-        np.int64)).to(device) for (sx, sy) in swizzle.TILE3D_PASS_ORDER]
+    return [to_card(_scan_perm(sx, sy, w, h)[1].astype(np.int64), device)
+            for (sx, sy) in swizzle.TILE3D_PASS_ORDER]
 
 
 # -- the host side of the compaction (numpy) -----------------------------------

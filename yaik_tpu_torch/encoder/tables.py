@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from yaik_tpu_torch.decoder.api import DeviceTables
+from yaik_tpu_torch.decoder.engine import to_card
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder.corr3d import PERMS48
 
@@ -54,7 +55,7 @@ def bank_tables(bank: bankmod.Bank) -> BankTables:
 
 
 _TABLES = DeviceTables(lambda bank, device: BankTables(
-    *(torch.from_numpy(a).to(device) for a in bank_tables(bank))))
+    *(to_card(a, device) for a in bank_tables(bank))))
 
 
 def device_tables(bank: bankmod.Bank, device: torch.device) -> BankTables:

@@ -54,6 +54,7 @@ import torch
 
 from yaik_tpu_torch.decoder import api, engine, pack
 from yaik_tpu_torch.decoder import planner as plannermod
+from yaik_tpu_torch.utils import profiler
 
 __all__ = ["data_devices", "decode_batch", "split_plan_bands",
            "decode_spatial", "decode_corpus"]
@@ -100,13 +101,16 @@ def batch_forms(plans: list, tables: engine.Tables, args: list | None = None
     w, h = plans[0].width, plans[0].height
     if any(p.width != w or p.height != h for p in plans):
         raise ValueError("decode_batch requires same-sized streams")
-    if args is None:
-        args = [pack.plan_to_args(p, tables.lut, tables.lut2) for p in plans]
-    args = pack.uniform_forms(plans, args, tables.lut, tables.lut2)
-    host_alpha = len({a.alpha.spec if a.alpha else None for a in args}) > 1
-    if host_alpha:
-        args = [dataclasses.replace(a, alpha=None) for a in args]
-    return args, host_alpha
+    with profiler.stage("decode:forms"):
+        if args is None:
+            args = [pack.plan_to_args(p, tables.lut, tables.lut2)
+                    for p in plans]
+        args = pack.uniform_forms(plans, args, tables.lut, tables.lut2)
+        host_alpha = len({a.alpha.spec if a.alpha else None
+                          for a in args}) > 1
+        if host_alpha:
+            args = [dataclasses.replace(a, alpha=None) for a in args]
+        return args, host_alpha
 
 
 def batch_operands(plans: list, tables: engine.Tables, args: list | None = None
@@ -138,9 +142,11 @@ def _decode_slice(args: list, tables: engine.Tables, flags: dict
                   ) -> torch.Tensor:
     """Stack, upload and queue the decode of one slice on its tables'
     device; returns before the device has finished."""
-    return engine.decode_core(engine.upload(pack.stack_args(args),
-                                            tables.tab.device),
-                              tables, **flags)
+    with profiler.stage("decode:stack"):
+        stacked = pack.stack_args(args)
+    stacked = engine.upload(stacked, tables.tab.device)
+    with profiler.stage("decode:dispatch"):
+        return engine.decode_core(stacked, tables, **flags)
 
 
 def _dispatch_split(plans: list, tables: list, flags: dict,
@@ -156,7 +162,8 @@ def _dispatch_split(plans: list, tables: list, flags: dict,
 def _join(parts: list, plans: list, host_alpha: bool) -> np.ndarray:
     """The slices' pixels on the host, in order: [B, H, W, 3|4] u8 (each
     `.cpu()` waits for its device)."""
-    out = np.concatenate([p.cpu().numpy() for p in parts])
+    with profiler.stage("decode:download"):
+        out = np.concatenate([engine.to_host(p) for p in parts])
     if not host_alpha:
         return out
     return np.stack([with_host_alpha(o, p, True) for o, p in zip(out, plans)])
@@ -182,13 +189,16 @@ def decode_batch(streams: list, lut, device=engine.CARD, t3_d1: bool = False,
         raise ValueError(f"decode_batch over {len(tables)} devices: the "
                          f"batch of {len(streams)} does not split into "
                          "equal slices")
-    plans = [plannermod.build_plan(s, bank.expanded, bank.expanded2d)
-             for s in streams]
-    withalpha = [p.has_alpha for p in plans]
-    if any(withalpha) and not all(withalpha):
-        raise ValueError("decode_batch cannot mix alpha/non-alpha streams "
-                         "in one batch")
-    return _decode(plans, tables, dict(t3_d1=t3_d1, grad_final=grad_final))
+    with profiler.stage("decode:batch"):
+        with profiler.stage("decode:plan"):
+            plans = [plannermod.build_plan(s, bank.expanded,
+                                           bank.expanded2d) for s in streams]
+        withalpha = [p.has_alpha for p in plans]
+        if any(withalpha) and not all(withalpha):
+            raise ValueError("decode_batch cannot mix alpha/non-alpha "
+                             "streams in one batch")
+        return _decode(plans, tables, dict(t3_d1=t3_d1,
+                                           grad_final=grad_final))
 
 
 def split_plan_bands(plan: plannermod.DecodePlan, n_bands: int) -> list:
@@ -310,9 +320,12 @@ def _dispatch(chunk, plans_args, tables, flags) -> _InFlight:
 
 
 def _drain(job: _InFlight, results: list) -> None:
-    pixels = np.concatenate([p.cpu().numpy() for p in job.parts])  # waits
-    for j, i in enumerate(job.chunk):
-        results[i] = with_host_alpha(pixels[j], job.plans[j], job.host_alpha)
+    with profiler.stage("decode:drain"):
+        pixels = np.concatenate([engine.to_host(p)                # waits
+                                 for p in job.parts])
+        for j, i in enumerate(job.chunk):
+            results[i] = with_host_alpha(pixels[j], job.plans[j],
+                                         job.host_alpha)
 
 
 def decode_corpus(streams: list, lut, batch_size: int = 8,
@@ -338,33 +351,39 @@ def decode_corpus(streams: list, lut, batch_size: int = 8,
                          f"the {len(tables)} devices")
     flags = dict(t3_d1=t3_d1, grad_final=grad_final)
 
-    def plan_and_pack(i):
-        plan = plannermod.build_plan(streams[i], bank.expanded,
-                                     bank.expanded2d)
-        return plan, pack.plan_to_args(plan, tables[0].lut, tables[0].lut2)
+    def plan_and_pack(i):       # on the calling thread or a planner thread
+        with profiler.stage("decode:plan-pack", parent=here):
+            with profiler.stage("decode:plan"):
+                plan = plannermod.build_plan(streams[i], bank.expanded,
+                                             bank.expanded2d)
+            return plan, pack.plan_to_args(plan, tables[0].lut,
+                                           tables[0].lut2)
 
-    groups: dict = {}                # size from the header alone
-    for i, s in enumerate(streams):
-        w, h, _ = api.decode_image_pre(s)
-        groups.setdefault((w, h), []).append(i)
-    chunks = [idxs[k:k + batch_size] for idxs in groups.values()
-              for k in range(0, len(idxs), batch_size)]
-    pool = (ThreadPoolExecutor(planner_workers) if planner_workers > 1
-            else None)
-    results: list = [None] * len(streams)
-    pending = None
-    try:
-        for chunk in chunks:
-            # planning batch k+1 here overlaps the card's work on batch k
-            planned = list(pool.map(plan_and_pack, chunk) if pool
-                           else map(plan_and_pack, chunk))
-            job = _dispatch(chunk, planned, tables, flags)
+    with profiler.stage("decode:corpus"):
+        with profiler.stage("decode:group"):     # size from the header alone
+            groups: dict = {}
+            for i, s in enumerate(streams):
+                w, h, _ = api.decode_image_pre(s)
+                groups.setdefault((w, h), []).append(i)
+            chunks = [idxs[k:k + batch_size] for idxs in groups.values()
+                      for k in range(0, len(idxs), batch_size)]
+        pool = (ThreadPoolExecutor(planner_workers) if planner_workers > 1
+                else None)
+        results: list = [None] * len(streams)
+        pending = None
+        here = profiler.current()
+        try:
+            for chunk in chunks:
+                # planning batch k+1 here overlaps the card's work on batch k
+                planned = list(pool.map(plan_and_pack, chunk) if pool
+                               else map(plan_and_pack, chunk))
+                job = _dispatch(chunk, planned, tables, flags)
+                if pending is not None:
+                    _drain(pending, results)
+                pending = job
             if pending is not None:
                 _drain(pending, results)
-            pending = job
-        if pending is not None:
-            _drain(pending, results)
-    finally:
-        if pool is not None:
-            pool.shutdown(wait=True)
-    return results
+        finally:
+            if pool is not None:
+                pool.shutdown(wait=True)
+        return results
