@@ -7,16 +7,24 @@ chunk its tag, every header field but the compressed sizes, and each of its
 zstd streams decompressed. Two streams with equal canonical forms carry the
 same bitmaps, colours, indices and residuals, so they decode to the same
 pixels; a stream that does not parse raises ValueError.
+
+The alpha chunks: MIPM gives every header field and its bitmap, which is
+not compressed; ALPM every field but the compressed size, and its payload
+decompressed. The encoder compresses the ALPM payload at the smallest of
+zstd levels 5 to 21, so its level, like its bytes, is the library's, and
+the form holds neither.
 """
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 from portbench.reference import swizzle, zstd
 from portbench.reference.decoder import iter_chunks
-from portbench.reference.headers import (MAGIC, FileHeader, Header1D,
-                                         HeaderGradientTile, HeaderTile3D,
-                                         HeaderTile3DX)
+from portbench.reference.headers import (MAGIC, AlphaHeader, FileHeader,
+                                         Header1D, HeaderGradientTile,
+                                         HeaderTile3D, HeaderTile3DX,
+                                         MipmapHeader)
 
 _MAPS = ("16_8", "8_16", "8_8", "8_4", "4_8", "4_4")
 # each chunk's zstd streams in body order: (compressed-size field, the
@@ -37,34 +45,58 @@ _LAYOUT = {
     b"1DTL": (Header1D, [
         ("stream_type_cnt", lambda hd, w, h: hd.stream_type_uncmp),
         ("stream_pixel_bit", lambda hd, w, h: hd.stream_pixel_uncmp)]),
+    b"ALPM": (AlphaHeader, [
+        ("stream_size", lambda hd, w, h: hd.expected_decompression_size)]),
 }
+
+
+def _mipm(body: bytes) -> tuple:
+    """A MIPM chunk's header fields and the bitmap's bytes, as the decoder
+    reads them (one bit a tile of its bbox)."""
+    hdr = MipmapHeader.unpack(body)
+    off = MipmapHeader.size()
+    n = (hdr.w * hdr.h + 7) // 8
+    bits = body[off:off + n]
+    if len(bits) < n:
+        raise ValueError("b'MIPM': its bitmap runs past the chunk")
+    if any(body[off + n:]):
+        raise ValueError("b'MIPM': bytes past its bitmap")
+    return dataclasses.asdict(hdr), [bits]
+
+
+def _chunk_form(tag: bytes, body: bytes, fh: FileHeader) -> tuple:
+    """(tag, header fields, decompressed streams) of one chunk."""
+    if tag == b"MIPM":
+        return (tag, *_mipm(body))
+    if tag not in _LAYOUT:
+        raise ValueError(f"chunk {tag!r} has no canonical form here")
+    cls, layout = _LAYOUT[tag]
+    hdr = cls.unpack(body)
+    off = cls.size()
+    parts = []
+    for field, usize in layout:
+        csize = getattr(hdr, field)
+        n = usize(hdr, fh.width, fh.height)
+        parts.append(zstd.decompress(body[off:off + csize], n)
+                     if csize else b"")
+        off += csize
+    if any(body[off:]):
+        raise ValueError(f"{tag!r}: bytes past its streams")
+    fields = {k: v for k, v in dataclasses.asdict(hdr).items()
+              if k not in {f for f, _ in layout}}
+    return (tag, fields, parts)
 
 
 def canonical(stream: bytes) -> list:
     """[file header fields, (tag, header fields, decompressed streams)...]
-    of a stream whose chunks are GTIL, 3DTL, 3DTX and 1DTL."""
+    of a stream whose chunks are GTIL, 3DTL, 3DTX, 1DTL, MIPM and ALPM."""
     if len(stream) <= FileHeader.size():
         raise ValueError("stream too small")
     fh = FileHeader.unpack(stream)
     if fh.tag != MAGIC:
         raise ValueError("not a YAIK stream")
-    out: list = [dataclasses.astuple(fh)]
-    for tag, _, body in iter_chunks(stream):
-        if tag not in _LAYOUT:
-            raise ValueError(f"chunk {tag!r} has no canonical form here")
-        cls, layout = _LAYOUT[tag]
-        hdr = cls.unpack(body)
-        off = cls.size()
-        parts = []
-        for field, usize in layout:
-            csize = getattr(hdr, field)
-            n = usize(hdr, fh.width, fh.height)
-            parts.append(zstd.decompress(body[off:off + csize], n)
-                         if csize else b"")
-            off += csize
-        if any(body[off:]):
-            raise ValueError(f"{tag!r}: bytes past its streams")
-        fields = {k: v for k, v in dataclasses.asdict(hdr).items()
-                  if k not in {f for f, _ in layout}}
-        out.append((tag, fields, parts))
-    return out
+    try:
+        return [dataclasses.astuple(fh)] + [
+            _chunk_form(tag, body, fh) for tag, _, body in iter_chunks(stream)]
+    except struct.error as e:
+        raise ValueError(f"malformed chunk: {e}") from e

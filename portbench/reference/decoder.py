@@ -2,8 +2,10 @@
 decoder (`decoder/reference.py`, the port's `engine="host"`, itself a
 direct port of the reference decoder's YAIK_API.cpp chunk loop,
 YAIK_Gradient.cpp and YAIK_3DTile.cpp), holding the chunks a default
-RGB encode writes: GTIL, 3DTL / 3DTX and 1DTL. It shares no code with the
-card's kernels or the port's planner.
+RGB or RGBA encode writes: GTIL, 3DTL / 3DTX and 1DTL, and the alpha
+chunks MIPM and ALPM (`reference.alpha`). 2DTL, SMAP, UCOL and PLNT, which
+only passes the reference leaves disabled write, are refused. It shares no
+code with the card's kernels or the port's planner.
 
 Planes are stored de-swizzled as [H8, W8] u8 (H8/W8 = image rounded up to 8);
 the reference's 8x8-tile swizzle is a storage order only - all writes are
@@ -15,6 +17,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from portbench.reference import alpha as alphamod
 from portbench.reference import palette, zstd
 from portbench.reference import lut as lutmod
 from portbench.reference import swizzle
@@ -362,9 +365,10 @@ def iter_chunks(stream: bytes):
 
 
 def decode(stream: bytes, lut_data: bytes | dict) -> np.ndarray:
-    """Decode a .yaik stream of GTIL, 3DTL, 3DTX and 1DTL chunks. Returns
-    [h, w, 3] u8. lut_data: raw LutFile.lut bytes or an already-expanded
-    LUT dict."""
+    """Decode a .yaik stream of GTIL, 3DTL, 3DTX, 1DTL, MIPM and ALPM
+    chunks. Returns [h, w, 3] u8, or [h, w, 4] where the file header sets
+    has_alpha (alpha 255 where the stream holds no ALPM). lut_data: raw
+    LutFile.lut bytes or an already-expanded LUT dict."""
     if len(stream) <= FileHeader.size():
         raise ValueError("stream too small")  # YAIK_INVALID_STREAM
     fh = FileHeader.unpack(stream)
@@ -377,6 +381,7 @@ def decode(stream: bytes, lut_data: bytes | dict) -> np.ndarray:
         luts_expanded = lutmod.expand_lut(lutmod.parse_lut_file(lut_data))
 
     import struct as _struct
+    mip_mask = None
     def _chunks_checked(s):
         try:
             yield from iter_chunks(s)
@@ -394,7 +399,12 @@ def decode(stream: bytes, lut_data: bytes | dict) -> np.ndarray:
             elif tag == b"1DTL":
                 hdr = Header1D.unpack(body)
                 _tile1d_chunk(st, hdr, body[Header1D.size():])
-            elif tag in (b"2DTL", b"MIPM", b"ALPM", b"SMAP", b"UCOL", b"PLNT"):
+            elif tag == b"MIPM":
+                mip_mask = alphamod.decode_mipm(body, fh.width, fh.height)
+            elif tag == b"ALPM":
+                st.alpha = alphamod.decode_alpm(body, fh.width, fh.height,
+                                                mip_mask)
+            elif tag in (b"2DTL", b"SMAP", b"UCOL", b"PLNT"):
                 raise ValueError(f"{tag!r}: a chunk this frozen copy does "
                                  "not decode (no configuration's streams "
                                  "hold one)")

@@ -6,8 +6,13 @@ the palette codec and the 1D residual in numpy and Python, and zstd-18.
 
 It covers the passes the reference's Convert runs by default on an RGB
 image (the seven gradient passes, the six 3D LUT passes, the 1D
-residual), which is what every configuration of the benchmark states;
-alpha and the passes the reference leaves disabled raise.
+residual), which is what every configuration of the benchmark states, and
+an RGBA image's alpha chunks: MIPM and then ALPM ahead of the gradient
+chunks, as the port's `emit_image` (`_alpha_chunks`) writes them under
+`enable_mipmap`, `enable_alpha`, `alpha_force_8bit` and
+`alpha_use_inverse` (`reference.alpha`). The RGB passes score the first
+three channels alone, so an [h, w, 3] image gives the stream it always
+gave. The passes the reference leaves disabled raise.
 """
 from __future__ import annotations
 
@@ -15,7 +20,7 @@ import struct
 
 import numpy as np
 
-from portbench.reference import corr3d, dyn1d, gradient, swizzle
+from portbench.reference import alpha, corr3d, dyn1d, gradient, swizzle
 from portbench.reference.bank import Bank
 from portbench.reference.context import (EncoderConfig, _chunk,
                                          _gtil_deferred,
@@ -50,12 +55,31 @@ def _streams(w: int, h: int, keys) -> dict:
                                    np.uint8) for key in keys}}
 
 
+def _alpha_chunks(alpha_plane: np.ndarray, cfg: EncoderConfig,
+                  parts: list) -> None:
+    """An RGBA image's MIPM and ALPM chunks, appended to `parts`."""
+    h, w = alpha_plane.shape
+    mip_mask, mip_bound = None, (0, 0, w, h)
+    if cfg.enable_mipmap:
+        mip_mask, mip_chunk, mip_bound = alpha.mip_prefilter(alpha_plane)
+        if mip_chunk:
+            parts.append(mip_chunk)
+    if cfg.enable_alpha:
+        alpm = alpha.process_alpha(alpha_plane, mip_mask, mip_bound,
+                                   force_8bit=cfg.alpha_force_8bit,
+                                   use_inverse=cfg.alpha_use_inverse)
+        if alpm:
+            parts.append(alpm)
+
+
 def encode_image(rgb: np.ndarray, bank: Bank,
                  config: EncoderConfig | None = None) -> bytes:
-    """The .yaik stream of an [h, w, 3] u8 image (sides multiples of 8)."""
+    """The .yaik stream of an [h, w, 3] or [h, w, 4] u8 image (sides
+    multiples of 8)."""
     cfg = config or EncoderConfig()
-    if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:
-        raise ValueError("the frozen encoder takes [h, w, 3] u8 images")
+    if rgb.ndim != 3 or rgb.shape[2] not in (3, 4) or rgb.dtype != np.uint8:
+        raise ValueError("the frozen encoder takes [h, w, 3] or [h, w, 4] "
+                         "u8 images")
     h, w = rgb.shape[:2]
     if (w & 7) or (h & 7):
         raise ValueError("image dimensions must be multiples of 8")
@@ -63,7 +87,9 @@ def encode_image(rgb: np.ndarray, bank: Bank,
         raise ValueError("the frozen encoder runs the default passes only")
     planes = _planes(rgb)
     accepts = gradient_accepts(planes, cfg.reject_factor)
-    parts: list = [FileHeader(MAGIC, 1, w, h, 0).pack()]
+    parts: list = [FileHeader(MAGIC, 1, w, h, int(rgb.shape[2] == 4)).pack()]
+    if rgb.shape[2] == 4:
+        _alpha_chunks(rgb[:, :, 3], cfg, parts)
     zb = _ZstdBatch()
     pal_state = PaletteState()
 

@@ -1,6 +1,7 @@
 """YAIK bitstream structures (shared encoder/decoder contract): a frozen
-copy of the port's `format/headers.py`, holding the structs of the chunks a
-default RGB encode writes, and the LUT file's.
+copy of the port's `format/headers.py` (:63-95 for the alpha chunks),
+holding the structs of the chunks a default RGB or RGBA encode writes, and
+the LUT file's.
 
 Byte-exact mirrors of the C structs in the reference `include/YAIK_private.h`
 (FileHeader :96-105, HeaderBase :107-110, MipmapHeader :112-118,
@@ -57,6 +58,41 @@ class HeaderBase(_Struct):
     tag: bytes
     length: int  # rounded up to multiple of 4, excludes this header
 
+
+@dataclass
+class MipmapHeader(_Struct):
+    # bbox(8) + u32 + u8 + u8 + 2 pad = 16
+    _fmt = "hhhhIBB2x"
+    x: int
+    y: int
+    w: int
+    h: int
+    stream_size: int
+    version: int
+    mipmap_level: int
+
+
+@dataclass
+class AlphaHeader(_Struct):
+    # bbox(8) + u32 + u32 + u8 + u8 + 2 pad = 20
+    _fmt = "hhhhIIBB2x"
+    x: int
+    y: int
+    w: int
+    h: int
+    stream_size: int
+    expected_decompression_size: int
+    version: int
+    parameters: int
+
+    # parameters & 7 (AlphaHeader::ALPHA_PARAM)
+    IS_1_BIT_USEMIPMAPMASK = 0
+    IS_1_BIT_FULL = 1
+    IS_6_BIT_USEMIPMAPMASK = 2
+    IS_6_BIT_USEMIPMAPMASK_INVERSE = 3
+    IS_6_BIT_FULL = 4
+    IS_6_BIT_FULL_INVERSE = 5
+    IS_8_BIT_FULL = 6
 
 
 @dataclass

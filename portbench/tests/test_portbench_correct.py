@@ -6,9 +6,12 @@ versions), in a scratch checkout whose cells run the benchmark's four
 traffic mixes on a 128x128 configuration (its pool made by the plain
 encoder), and see `correct` come out true for the program as it is and
 false for each control and for each fault a cell can have: an answer
-altered where it is produced, and half of a batch left out. The `cuda`
-test reads the controls on the card at the cells' own sizes, on three seeds
-each:
+altered where it is produced, and half of a batch left out. A 128x128 RGBA
+configuration, added as files with a driver and a traffic mix of its own,
+runs under decode-one and encode-one-rgba, and the alpha faults (an alpha
+byte altered, the alpha channel left out, an ALPM payload altered) read not
+correct. The `cuda` test reads the controls on the card at the cells' own
+sizes, on three seeds each:
 
     python -m pytest portbench/tests/test_portbench_correct.py -q -m cuda -s
 """
@@ -138,6 +141,7 @@ def test_encode_sound_run_is_correct(tiny, traffic):
     ok, n = judged(f"tiny128.{traffic}", root=tiny)
     assert ok and n["streams_differing"] == 0 and n["answers_checked"] >= 1
     assert n["size_over_pct"] <= check.LIMITS["size_over_pct"]
+    assert "alpm_over_sweep_pct" not in n       # RGB: no ALPM, no number
 
 
 def test_encode_control_is_not_correct(tiny):
@@ -264,6 +268,157 @@ def test_a_mix_with_a_new_driver_and_mixed_sizes_added_as_files(tiny,
         pytest.approx(sum(inputs.pixels[i] for i in done) / 1e6 /
                       run.window_s)
     assert all(p.read_bytes() == v for p, v in before.items())
+
+
+RGBA_DRIVER = '''"""encode_image of 128x128 RGBA sprites: make_main's RGB
+under an alpha of seeded discs inside a border of wholly transparent 16x16
+tiles (so MIPM is written) with a transparent tile among them, binary edges
+on the first image and anti-aliased edges on the others."""
+import numpy as np
+
+from portbench.harness import loop
+
+KIND = "encode"
+
+
+def alpha(rng, h, w, soft):
+    yy, xx = np.mgrid[0:h, 0:w]
+    a = np.zeros((h, w))
+    for _ in range(3):
+        cy, cx = rng.uniform(40, h - 40), rng.uniform(40, w - 40)
+        d = np.hypot(yy - cy, xx - cx) - rng.uniform(10, 22)
+        a = np.maximum(a, np.clip(0.5 - d / 3, 0, 1) if soft else d <= 0)
+    a[:16] = a[-16:] = a[:, :16] = a[:, -16:] = 0
+    a[64:80, 64:80] = 0
+    return np.round(a * 255).astype(np.uint8)
+
+
+def sprites(cfg):
+    from portbench.gen import images
+    return [np.dstack([im, alpha(np.random.default_rng(
+        cfg["images"]["seed"] + 1000 + i), *im.shape[:2], i > 0)])
+        for i, im in enumerate(images.config_images(cfg))]
+
+
+def inputs(cell):
+    inp, streams = loop.pool_inputs(cell, KIND)
+    inp.images = sprites(cell.config)
+    return inp, streams
+
+
+def entry(inputs, device, **kw):
+    import yaik_tpu_torch
+    return lambda idx: [yaik_tpu_torch.encode_image(
+        inputs.images[i], inputs.bank3d, device=device,
+        config=inputs.encoder_config, **kw) for i in idx]
+'''
+
+
+@pytest.fixture(scope="module")
+def tiny_rgba(tiny, tmp_path_factory):
+    """The scratch checkout of `tiny` with a 128x128 RGBA configuration
+    added as files: a driver of its own (`drivers/encode_image_rgba.py`,
+    whose `inputs(cell)` makes the sprites) under a traffic file of its own
+    (`encode-one-rgba`, encode-one with that driver), its pool made by the
+    plain encoder (MIPM, and ALPM in 1-bit and sparse 6-bit modes), and its
+    cells under decode-one and encode-one-rgba."""
+    from portbench.harness import loop
+    from portbench.reference import bank, context, decoder, encoder
+    from portbench.reference.headers import AlphaHeader
+    root = tmp_path_factory.mktemp("rgba") / "checkout"
+    shutil.copytree(tiny, root)
+    (root / "portbench/drivers/encode_image_rgba.py").write_text(RGBA_DRIVER)
+    mix = json.loads((root / "portbench/traffic/encode-one.json").read_text())
+    mix["driver"] = "encode_image_rgba"
+    (root / "portbench/traffic/encode-one-rgba.json").write_text(
+        json.dumps(mix))
+    cfg = json.loads((root / "portbench/configs/tiny128.json").read_text())
+    cfg.update(name="tiny_rgba128", channels=4,
+               pool="portbench/data/tiny_rgba128")
+    cfg["encoder"]["alpha_force_8bit"] = False
+    (root / "portbench/configs/tiny_rgba128.json").write_text(json.dumps(cfg))
+    (root / "portbench/data/tiny_rgba128").mkdir()
+    b3 = bank.load_bank(str(root / "portbench/data/Bank3D"))
+    modes = set()
+    driver = loop.load_driver("encode_image_rgba", str(root))
+    for i, img in enumerate(driver.sprites(cfg)):
+        assert img.shape == (128, 128, 4)
+        s = encoder.encode_image(img, b3,
+                                 context.EncoderConfig(**cfg["encoder"]))
+        chunks = list(decoder.iter_chunks(s))
+        assert [c[0] for c in chunks[:2]] == [b"MIPM", b"ALPM"]
+        modes.add(AlphaHeader.unpack(chunks[1][2]).parameters & 7)
+        (root / f"portbench/data/tiny_rgba128/{i:03d}.yaik").write_bytes(s)
+    assert modes == {1, 3}, modes        # 1-bit, sparse 6-bit inverse
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    b["configs"].append({"name": "tiny_rgba128", "source": "x",
+                         "reduced": [], "why": "x",
+                         "file": "portbench/configs/tiny_rgba128.json"})
+    for t in ("decode-one", "encode-one-rgba"):
+        b["workloads"].append({"name": f"tiny_rgba128.{t}",
+                               "config": "tiny_rgba128", "traffic": t,
+                               "chips": 1, "why": "x"})
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+    return str(root)
+
+
+@pytest.mark.parametrize("traffic", ["decode-one", "encode-one-rgba"])
+def test_rgba_sound_run_is_correct(tiny_rgba, traffic):
+    ok, n = judged(f"tiny_rgba128.{traffic}", root=tiny_rgba)
+    assert ok and n["answers_checked"] >= 1, n
+    assert n.get("pixels_differing", 0) == n.get("streams_differing", 0) == 0
+    assert n.get("size_over_pct", 0) <= check.LIMITS["size_over_pct"]
+    if traffic == "encode-one-rgba":
+        assert n["alpm_over_sweep_pct"] == 0, n
+
+
+def test_rgba_encode_alpm_at_level5_is_not_correct(tiny_rgba):
+    """The control of the ALPM level sweep: the program compresses each
+    ALPM payload at zstd level 5 alone, the same content in a larger
+    payload, which only `alpm_over_sweep_pct` sees."""
+    from portbench.reference import zstd
+    from yaik_tpu_torch.encoder import alpha as port_alpha
+
+    def make(sweep):
+        return lambda data: zstd.compress(data, 5, len(data) * 2)
+    with patched(port_alpha, "_zstd_sweep", make):
+        ok, n = judged("tiny_rgba128.encode-one-rgba", root=tiny_rgba)
+    assert n["streams_differing"] == 0 and n["answers_checked"] >= 1, n
+    assert n["size_over_pct"] <= check.LIMITS["size_over_pct"], n
+    assert not ok and n["alpm_over_sweep_pct"] > 0, n
+
+
+@pytest.mark.parametrize("fault", ["alpha_byte_altered", "alpha_dropped"])
+def test_rgba_decode_fault_is_not_correct(tiny_rgba, fault):
+    """One alpha byte of the answer altered where it is produced, or the
+    answer's alpha channel left out."""
+    from yaik_tpu_torch.decoder import engine
+
+    def make(fn):
+        def faulty(*a, **k):
+            out = fn(*a, **k)
+            assert out.shape[2] == 4
+            if fault == "alpha_dropped":
+                return out[:, :, :3].copy()
+            out = out.copy()
+            out[70, 40, 3] ^= 1
+            return out
+        return faulty
+    with patched(engine, "decode_plan", make):
+        ok, n = judged("tiny_rgba128.decode-one", root=tiny_rgba)
+    assert not ok and n["pixels_differing"] > 0, n
+
+
+def test_rgba_encode_alpm_payload_altered_is_not_correct(tiny_rgba):
+    """One byte of each ALPM payload altered before the program's level
+    sweep compresses it."""
+    from yaik_tpu_torch.encoder import alpha as port_alpha
+
+    def make(sweep):
+        return lambda data: sweep(bytes([data[0] ^ 0x04]) + data[1:])
+    with patched(port_alpha, "_zstd_sweep", make):
+        ok, n = judged("tiny_rgba128.encode-one-rgba", root=tiny_rgba)
+    assert not ok and n["streams_differing"] == n["answers_checked"] >= 1, n
 
 
 CONTROLS = {"illust512.decode-corpus": ("decode",),
