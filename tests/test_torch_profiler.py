@@ -221,6 +221,99 @@ def test_transfer_counters_of_one_cpu_decode(bank):
                              "pack_d1_native": 1}
 
 
+ALPHA_SPANS = {"encode:alpha", "alpha:mipm", "alpha:alpm", "plan:mipm",
+               "plan:alpm", "pack:alpha", "decode:alpha"}
+ALPHA_COUNTERS = {"alpm_sweep_compressions", "alpm_in_bytes",
+                  "alpm_out_bytes", "alpm_decoded_bytes"}
+
+
+@pytest.fixture(scope="module")
+def bank3d():
+    from yaik_tpu_torch.encoder import bank as bankmod
+    return bankmod.load_bank(str(FIX / "Bank3D"))
+
+
+def test_alpha_spans_and_counters_of_an_rgba_round_trip(bank, bank3d,
+                                                         monkeypatch):
+    """An RGBA image with transparent tiles (MIPM, then 8-bit ALPM): the
+    alpha spans sit under the encode's and the decode's own spans, the
+    sweep's counter equals its compress calls, and the byte counters equal
+    the ALPM chunk's sizes."""
+    from torch_streams import rgba_case
+    from yaik_tpu_torch.encoder import alpha as ealpha
+    from yaik_tpu_torch.format.headers import AlphaHeader
+    img = rgba_case("sparse")
+    stream = yaik_tpu_torch.encode_image(img, bank3d, device="cpu")
+    yaik_tpu_torch.decode_image(stream, bank, device="cpu")       # tables
+    calls = []
+
+    class Counted:                  # the alpha module's zstd, counted
+        def __getattr__(self, name):
+            return getattr(ectx_zstd, name)
+
+        @staticmethod
+        def compress(*a, **k):
+            calls.append(len(a[0]))
+            return ectx_zstd.compress(*a, **k)
+    ectx_zstd = ealpha.zstd
+    monkeypatch.setattr(ealpha, "zstd", Counted())
+    with profiler.enable() as enc:
+        got = yaik_tpu_torch.encode_image(img, bank3d, device="cpu")
+    monkeypatch.undo()
+    assert got == stream
+    with profiler.enable() as dec:
+        px = yaik_tpu_torch.decode_image(stream, bank, device="cpu")
+    assert px.shape == (64, 64, 4) and np.array_equal(px[:, :, 3],
+                                                      img[:, :, 3])
+    for prof in (enc, dec):
+        _check_ids(prof)
+    tags = [t for t, _ in _chunk_bodies(stream)]
+    assert tags[:2] == [b"MIPM", b"ALPM"]
+    hdr = AlphaHeader.unpack(dict(_chunk_bodies(stream))[b"ALPM"])
+
+    def parent(prof, name):
+        ev = {e.span: e for e in prof.events}
+        kid, = _by_name(prof)[name]
+        return ev[kid.parent].name
+    assert {n: parent(enc, n) for n in ("encode:alpha", "alpha:mipm",
+                                        "alpha:alpm")} == {
+        "encode:alpha": "encode:image", "alpha:mipm": "encode:alpha",
+        "alpha:alpm": "encode:alpha"}
+    assert {n: parent(dec, n) for n in ("plan:mipm", "plan:alpm",
+                                        "pack:alpha", "decode:alpha",
+                                        "decode:dispatch")} == {
+        "plan:mipm": "decode:plan", "plan:alpm": "decode:plan",
+        "pack:alpha": "pack:extras", "decode:alpha": "decode:dispatch",
+        "decode:dispatch": "decode:device"}
+    assert parent(dec, "decode:plan") == "decode:image"
+    assert len(calls) >= 2
+    assert enc.counters["alpm_sweep_compressions"] == len(calls)
+    assert enc.counters["alpm_in_bytes"] == hdr.expected_decompression_size
+    assert enc.counters["alpm_out_bytes"] == hdr.stream_size
+    assert dec.counters["alpm_decoded_bytes"] == \
+        hdr.expected_decompression_size
+
+
+def test_an_rgb_round_trip_records_no_alpha_span_or_counter(bank, bank3d):
+    from torch_streams import rgba_case
+    rgb = np.ascontiguousarray(rgba_case("sparse")[:, :, :3])
+    stream = yaik_tpu_torch.encode_image(rgb, bank3d, device="cpu")
+    yaik_tpu_torch.decode_image(stream, bank, device="cpu")       # tables
+    with profiler.enable() as prof:
+        stream = yaik_tpu_torch.encode_image(rgb, bank3d, device="cpu")
+        yaik_tpu_torch.decode_image(stream, bank, device="cpu")
+    names = set(_by_name(prof))
+    assert {"encode:image", "decode:image", "pack:extras"} <= names
+    assert not names & ALPHA_SPANS
+    assert not set(prof.counters) & ALPHA_COUNTERS
+
+
+def _chunk_bodies(stream: bytes) -> list:
+    """[(tag, body)] of a stream's chunks."""
+    from yaik_tpu_torch.decoder.planner import iter_chunks
+    return [(tag, body) for tag, _, body in iter_chunks(stream)]
+
+
 # -- on the card --------------------------------------------------------------
 
 @pytest.fixture(scope="module")

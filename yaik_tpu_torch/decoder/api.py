@@ -36,7 +36,7 @@ from yaik_tpu_torch.decoder import planner as plannermod
 from yaik_tpu_torch.decoder import reference
 from yaik_tpu_torch.format import lut as lutmod
 from yaik_tpu_torch.format.headers import MAGIC, FileHeader
-from yaik_tpu_torch.utils import profiler
+from yaik_tpu_torch.utils import hostheap, profiler
 
 __all__ = ["LutBank", "assign_lut", "decode_image", "decode_image_pre",
            "DeviceTables"]
@@ -114,12 +114,14 @@ def decode_image(stream: bytes, lut: LutBank | bytes, device="cuda",
                  engine: str = "device") -> np.ndarray:
     """Decode a stream on `device` (the card unless the caller asks for
     "cpu"), or on the host with `engine="host"`; returns [H, W, 3] u8, or
-    [H, W, 4] for a stream with alpha."""
+    [H, W, 4] for a stream with alpha. The device engine fixes the host
+    heap's thresholds at its first call (`utils.hostheap.hold`)."""
     lut = bank_of(lut)
     if engine == "host":
         return reference.decode(stream, lut.expanded, lut.expanded2d)
     if engine != "device":
         raise ValueError(f"unknown engine {engine!r}")
+    hostheap.hold()
     with profiler.stage("decode:image"):
         dev = device_of(device)
         tables = _TABLES.get(lut, dev)

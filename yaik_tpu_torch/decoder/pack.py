@@ -591,7 +591,10 @@ def plan_to_args(plan: plannermod.DecodePlan, lut: LutTable,
             prm, codes4, wm2 = pack_d1_blocks(plan)
         with profiler.stage("pack:extras"):
             overlay, pgrad = overlay_operands(plan), pgrad_operands(plan)
-            alpha = alpha_operands(plan)
+            alpha = None
+            if plan.has_alpha:
+                with profiler.stage("pack:alpha"):
+                    alpha = alpha_operands(plan)
     return DecodeArgs(plan.height, plan.width, corners, code4, idx16, cols,
                       accept, rows, prm, codes4, wm2, t3_passes=t3_passes,
                       overlay=overlay, pgrad=pgrad, t2_layers=t2_layers,

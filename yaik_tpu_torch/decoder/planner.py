@@ -43,6 +43,7 @@ from yaik_tpu_torch.format.headers import (AlphaHeader, FileHeader, Header1D,
                                            MipmapHeader, PlaneTile,
                                            UniqueColorHeader)
 from yaik_tpu_torch.ops.plane import ycocg_to_rgb
+from yaik_tpu_torch.utils import profiler
 
 
 @dataclass
@@ -432,9 +433,11 @@ def build_plan(stream: bytes, luts_expanded: dict,
             d1 = _plan_1d(body[Header1D.size():], hdr, w, h,
                           claims if claims3 is None else claims3)
         elif tag == b"MIPM":
-            mip_plan = _plan_mipm(body, w, h)
+            with profiler.stage("plan:mipm"):
+                mip_plan = _plan_mipm(body, w, h)
         elif tag == b"ALPM":
-            alpha_plan = _plan_alpm(body, w, h, mip_plan)
+            with profiler.stage("plan:alpm"):
+                alpha_plan = _plan_alpm(body, w, h, mip_plan)
         else:
             raise NotImplementedError(f"chunk {tag!r} not planned yet")
       except _struct.error as e:
@@ -491,6 +494,7 @@ def _plan_alpm(body: bytes, w: int, h: int,
     payload = zstd.decompress_arr(
         bytes(body[AlphaHeader.size():AlphaHeader.size() + hdr.stream_size]),
         hdr.expected_decompression_size)
+    profiler.count("alpm_decoded_bytes", payload.size)
     raw = np.zeros(needed, np.uint8)
     avail = min(needed, payload.size)
     raw[:avail] = payload[:avail]

@@ -26,18 +26,22 @@ import numpy as np
 from yaik_tpu_torch.encoder.context import _chunk
 from yaik_tpu_torch.entropy import zstd_backend as zstd
 from yaik_tpu_torch.format.headers import AlphaHeader, MipmapHeader
+from yaik_tpu_torch.utils import profiler
 
 
 def _zstd_sweep(data: bytes) -> bytes:
     """Level sweep 5..21, keep the smallest (first-best on ties); break when
-    size grows past the best (EncoderContext.cpp:1590-1615)."""
+    size grows past the best (EncoderContext.cpp:1590-1615). Counts every
+    compression, the final one included (`alpm_sweep_compressions`)."""
     best, best_lvl = None, 5
     for lvl in range(5, 22):
         z = zstd.compress(data, lvl, len(data) * 2)
+        profiler.count("alpm_sweep_compressions")
         if best is None or len(z) < best:
             best, best_lvl = len(z), lvl
         elif len(z) > best:
             break
+    profiler.count("alpm_sweep_compressions")
     return zstd.compress(data, best_lvl, len(data) * 2)
 
 
@@ -151,6 +155,8 @@ def process_alpha(alpha: np.ndarray, mip_mask: np.ndarray | None,
         bbox = (bl, bt, br - bl, bb - bt)
 
     z = _zstd_sweep(raw)
+    profiler.count("alpm_in_bytes", len(raw))
+    profiler.count("alpm_out_bytes", len(z))
     hdr = AlphaHeader(x=bbox[0], y=bbox[1], w=bbox[2], h=bbox[3],
                       stream_size=len(z), expected_decompression_size=len(raw),
                       version=1, parameters=params)

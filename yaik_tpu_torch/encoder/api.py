@@ -121,17 +121,21 @@ def _alpha_chunks(rgb: np.ndarray, cfg: EncoderConfig, parts: list):
     if rgb.shape[2] != 4:
         return mip_mask, mip_bound
     alpha_plane = rgb[:, :, 3]
-    if cfg.enable_mipmap:
-        mip_mask, mip_chunk, mip_bound = alphamod.mip_prefilter(alpha_plane)
-        if mip_chunk:
-            parts.append(mip_chunk)
-    if cfg.enable_alpha:
-        alpm = alphamod.process_alpha(
-            alpha_plane, mip_mask, mip_bound,
-            force_8bit=cfg.alpha_force_8bit,
-            use_inverse=cfg.alpha_use_inverse)
-        if alpm:
-            parts.append(alpm)
+    with profiler.stage("encode:alpha"):
+        if cfg.enable_mipmap:
+            with profiler.stage("alpha:mipm"):
+                mip_mask, mip_chunk, mip_bound = alphamod.mip_prefilter(
+                    alpha_plane)
+            if mip_chunk:
+                parts.append(mip_chunk)
+        if cfg.enable_alpha:
+            with profiler.stage("alpha:alpm"):
+                alpm = alphamod.process_alpha(
+                    alpha_plane, mip_mask, mip_bound,
+                    force_8bit=cfg.alpha_force_8bit,
+                    use_inverse=cfg.alpha_use_inverse)
+            if alpm:
+                parts.append(alpm)
     return mip_mask, mip_bound
 
 
