@@ -40,7 +40,7 @@ from yaik_tpu.encoder.context import encode_image as jax_encode_image  # noqa: E
 
 import yaik_tpu_torch  # noqa: E402
 from yaik_tpu_torch import native  # noqa: E402
-from yaik_tpu_torch.encoder import api, batch, gradient, pipeline  # noqa: E402
+from yaik_tpu_torch.encoder import api, batch, gradient  # noqa: E402
 from yaik_tpu_torch.encoder import bank as bankmod  # noqa: E402
 from yaik_tpu_torch.encoder.context import EncoderConfig  # noqa: E402
 from yaik_tpu_torch.format import swizzle  # noqa: E402
@@ -179,18 +179,15 @@ EMIT_CROPS = {40: ("sprite256", 72, 40), 56: ("img128", 72, 56),
               120: ("img128", 128, 120)}
 
 
-def _emissions(w: int, fast: bool) -> list:
+def _emissions(w: int, fast: bool, bank) -> list:
     """Each gradient pass's (bitmap, stream, count, claims4 after it) of a
     crop, emitted from the scorer's accept grids as emit_image does, by
     emit_pass_fast (native) or emit_pass."""
     img = crop(*EMIT_CROPS[w])
     h = img.shape[0]
     planes = api._planes(img)
-    t_planes = torch.from_numpy(np.ascontiguousarray(planes))
     cfg = EncoderConfig()
-    accepts = pipeline.run_gradient_scoring(
-        t_planes, torch.zeros(t_planes.shape, dtype=torch.bool),
-        cfg.reject_factor, False)
+    accepts = api.score_image(img, bank, "cpu", cfg)[0]
     corners4 = gradient._corner_grids(planes, 4, 4).astype(np.int64)
     claims4 = np.zeros((h // 4, w // 4), bool)
     if fast:
@@ -218,12 +215,12 @@ def _emissions(w: int, fast: bool) -> list:
 
 
 @pytest.fixture(scope="module")
-def emissions():
+def emissions(bank3d):
     cache = {}
 
     def get(w, fast):
         if (w, fast) not in cache:
-            cache[w, fast] = _emissions(w, fast)
+            cache[w, fast] = _emissions(w, fast, bank3d)
         return cache[w, fast]
     return get
 

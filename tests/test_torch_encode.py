@@ -27,8 +27,7 @@ from yaik_tpu.encoder import jax_scoring as js
 from yaik_tpu.encoder.context import EncoderConfig
 from yaik_tpu.encoder.context import encode_image as jax_encode_image
 from yaik_tpu.format import swizzle
-from yaik_tpu_torch.encoder import (api, bank2d, emit, pipeline, scoring,
-                                    tables)
+from yaik_tpu_torch.encoder import api, bank2d, emit, scoring, tables
 from yaik_tpu_torch.ops import kernels
 
 FIX = pathlib.Path(__file__).parent / "fixtures"
@@ -102,13 +101,18 @@ def test_tile3d_passes_match_resident(name, bank):
 def test_emit_tile3d_streams_matches_jax(bank):
     img = _image("img128")
     h, w = img.shape[:2]
-    planes = torch.from_numpy(_planes(img))
-    claims = torch.zeros(planes.shape, dtype=torch.bool)
-    scoring.gradient_all(planes, claims, 3)
-    results = pipeline.run_tile3d_scoring(
-        planes, claims, tables.device_tables(bank, CPU))
+    results = api.score_image(img, bank, "cpu")[1]
     assert set(results[0]) == {"shift", "accept", "type", "bbox", "idx",
                                "mask"}
+    dtypes = {"idx": np.uint8, "mask": np.bool_, "accept": np.bool_,
+              "type": np.int32, "bbox": np.uint8}
+    for (sx, sy), res in zip(swizzle.TILE3D_PASS_ORDER, results):
+        T, P = (h >> sy) * (w >> sx), (1 << sx) * (1 << sy)
+        assert res["shift"] == (sx, sy)
+        assert {k: res[k].dtype for k in dtypes} == dtypes, (sx, sy)
+        assert {k: res[k].shape for k in dtypes} == {
+            "idx": (T, P), "mask": (T, P), "accept": (T,), "type": (T,),
+            "bbox": (T, 6)}, (sx, sy)
 
     def streams():
         return {"color": bytearray(), "type": [], 3: bytearray(),

@@ -29,6 +29,8 @@ Exact comparisons only: plans, tables and pixels are integers.
 """
 import ast
 import dataclasses
+import importlib
+import inspect
 import json
 import os
 import pathlib
@@ -152,6 +154,95 @@ def test_no_port_file_imports_the_jax_package():
     for path in files + [smoke] + helpers:
         bad = sorted(n for n in _imports(path) if _forbidden(n))
         assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def _port_imports(tree: ast.AST) -> dict:
+    """name -> the object it names, for every name an import of `tree`
+    binds to yaik_tpu_torch or a module or member of it, at any depth of
+    the file; a member it cannot import maps to None."""
+    bound = {}
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                if a.name.split(".")[0] == "yaik_tpu_torch":
+                    top = a.asname or a.name.split(".")[0]
+                    bound[top] = importlib.import_module(
+                        a.name if a.asname else top)
+        elif (isinstance(node, ast.ImportFrom) and node.level == 0
+              and node.module.split(".")[0] == "yaik_tpu_torch"):
+            mod = importlib.import_module(node.module)
+            for a in node.names:
+                try:
+                    obj = importlib.import_module(f"{node.module}.{a.name}")
+                except ImportError:
+                    obj = getattr(mod, a.name, None)
+                bound[a.asname or a.name] = obj
+    return bound
+
+
+def _other_bindings(tree: ast.AST) -> set:
+    """Names that `tree` binds other than by an import: assignments, loop
+    and `with` targets, arguments, functions and classes."""
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Name) and not isinstance(node.ctx, ast.Load):
+            names.add(node.id)
+        elif isinstance(node, ast.arg):
+            names.add(node.arg)
+        elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                               ast.ClassDef)):
+            names.add(node.name)
+    return names
+
+
+def _attribute_chain(node: ast.Attribute):
+    """(root name, [attr, ...]) of `a.b.c`, or None where the chain does
+    not start at a name."""
+    attrs = []
+    while isinstance(node, ast.Attribute):
+        attrs.append(node.attr)
+        node = node.value
+    return (node.id, attrs[::-1]) if isinstance(node, ast.Name) else None
+
+
+def test_chip_smoke_reads_only_names_the_port_has():
+    """Every name chip_smoke.py imports from the port exists, and so does
+    every attribute it reads or sets on a port module or class it names,
+    down each dotted chain while it stays on a module or a class (parsed,
+    not run: chip_smoke needs a card). A change to the port that drops or
+    renames what the file uses fails here, on the CPU."""
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    bound = _port_imports(tree)
+    assert {"api", "pipeline", "scoring", "ebatch", "kernels"} <= set(bound)
+    assert not set(bound) & _other_bindings(tree)      # the names are sure
+    missing = sorted(n for n, obj in bound.items() if obj is None)
+    seen = set()
+    for node in ast.walk(tree):
+        chain = (_attribute_chain(node) if isinstance(node, ast.Attribute)
+                 else None)
+        if chain is None or chain[0] not in bound:
+            continue
+        obj, path = bound[chain[0]], chain[0]
+        for attr in chain[1]:
+            if not (inspect.ismodule(obj) or inspect.isclass(obj)):
+                break
+            path += "." + attr
+            if not hasattr(obj, attr) and inspect.ismodule(obj):
+                try:
+                    importlib.import_module(f"{obj.__name__}.{attr}")
+                except ImportError:
+                    pass
+            if not hasattr(obj, attr):
+                missing.append(path)
+                break
+            obj = getattr(obj, attr)
+            seen.add(path)
+    assert not missing, ("chip_smoke.py reads what the port lacks: "
+                         f"{sorted(set(missing))}")
+    assert {"api.score_image", "pipeline.tile3d_all", "pipeline._tile3d_all",
+            "scoring.tile3d_pass", "scoring.tile3d_operands",
+            "scoring.gradient_all", "ebatch._upload",
+            "ebatch._grad_packed_len"} <= seen
 
 
 # -- the copies equal the originals -------------------------------------------

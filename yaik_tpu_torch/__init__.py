@@ -37,7 +37,9 @@ overflows them) and `encode_image_banded` (one image in 16-row bands).
 package (the alpha chunks; UCOL, SMAP, plane-subset gradients, 2D with
 `bank2d=`, PLNT where the config turns them on), scoring the RGB planes on
 the card and running those passes on the host, as the JAX device engine
-does. `decoder.engine.decode_plnt_plane` reconstructs a PLNT plane from
+does. Its scoring, `encoder.api.score_image`, is the one-band case of the
+banded encodes' dense scoring (`encoder.pipeline.score_dense`: the image
+sent as u8, one packed row a tile, one copy back). `decoder.engine.decode_plnt_plane` reconstructs a PLNT plane from
 `decoder.pack.plnt_args`. `encoder.mining` mines LUT banks from a corpus,
 the coverage matrix on the card (`ops/csrc/covers.cu`).
 
@@ -70,8 +72,9 @@ Layout:
   encoder/tables.py    - the 3D LUT bank as the scoring kernels take it
   encoder/scoring.py   - gradient and 3D pass scoring of an image or a
                          batch, with the alive-tile cap (torch + kernels)
-  encoder/pipeline.py  - the passes on the device: one image, dense; a batch,
-                         packed and compacted; the compaction's host side
+  encoder/pipeline.py  - the passes on the device over a batch, packed: dense
+                         (score_dense: an image or its bands) or compacted;
+                         the host side of both
   encoder/emit.py      - 3D stream emission from the scoring results, dense
                          or compacted (numpy)
   encoder/context.py, gradient.py, dyn1d.py, palette_codec.py

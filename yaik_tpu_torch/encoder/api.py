@@ -6,7 +6,10 @@ engine="device")` encodes one RGB or RGBA image with all tile scoring on
 versions): the device branch of
 `yaik_tpu.encoder.context.encode_image(engine="device")`, byte for byte.
 The device scores the RGB planes (the 7 gradient passes and the six 3D
-passes); the host does the rest, as the JAX package's device engine does:
+passes) in `score_image`, the one-band case of the dense scoring that the
+banded encodes run too (`pipeline.score_dense`: the image sent once as
+u8, one packed u8 row a tile, one copy back); `emit_image` does the rest
+on the host, as the JAX package's device engine does:
 the MIPM / ALPM alpha chunks, and the passes the reference's Convert leaves
 disabled when the config turns them on (UCOL, SMAP, the plane-subset
 gradient passes, the 2D passes, PLNT), in Convert's order, then gradient
@@ -35,10 +38,9 @@ from __future__ import annotations
 import struct
 
 import numpy as np
-import torch
 
 from yaik_tpu_torch import native
-from yaik_tpu_torch.decoder.engine import device_of, to_card
+from yaik_tpu_torch.decoder.engine import device_of
 from yaik_tpu_torch.encoder import alpha as alphamod
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder import (corr2d, corr3d, dyn1d, emit, gradient,
@@ -81,22 +83,14 @@ def _planes(rgb: np.ndarray) -> np.ndarray:
 def score_image(rgb: np.ndarray, bank: bankmod.Bank, device="cuda",
                 config: EncoderConfig | None = None, plain: bool = False):
     """All tile scoring of one image's RGB planes on `device`: (the 7
-    gradient accept grids, the six 3D passes' result dicts), as numpy
-    arrays. `plain` scores every pass with the kernels' plain versions."""
+    gradient accept grids, the six 3D passes' dense dicts), as numpy
+    arrays; the one-band case of `pipeline.score_dense` (the image sent as
+    u8, its results back in one copy). `plain` scores every pass with the
+    kernels' plain versions."""
     cfg = config or EncoderConfig()
     _check(rgb)
-    dev = device_of(device)
-    with profiler.stage("encode:upload"):
-        planes = to_card(_planes(rgb), dev)
-    claims = torch.zeros(planes.shape, dtype=torch.bool, device=dev)
-    with profiler.stage("encode:gradient-scoring"):
-        accepts = pipeline.run_gradient_scoring(planes, claims,
-                                                cfg.reject_factor, plain)
-    with profiler.stage("encode:3d-scoring"):
-        t3 = pipeline.run_tile3d_scoring(planes, claims,
-                                         tables.device_tables(bank, dev),
-                                         plain)
-    return accepts, t3
+    tabs = tables.device_tables(bank, device_of(device))
+    return pipeline.score_dense([(rgb, tabs)], cfg.reject_factor, plain)[0]
 
 
 def host_gradient_accepts(rgb: np.ndarray, reject_factor: int = 3) -> list:

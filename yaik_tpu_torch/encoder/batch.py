@@ -26,6 +26,8 @@
 - `encode_image_banded_mesh` scores one image in one band per device
   (the JAX package's band arithmetic: equal bands of 16-row multiples,
   the bottom padded by repeating the last row, a one-row halo each).
+Both score their bands with `pipeline.score_dense`, as `api.score_image`
+scores a whole image, which is their one-band case.
 
 Every stream is byte-identical to `api.encode_image`'s (and so to the JAX
 package's). The JAX package's environment variables are keyword arguments
@@ -68,7 +70,7 @@ import numpy as np
 import torch
 
 from yaik_tpu_torch.decoder.engine import (CARD, device_of, devices_of,
-                                           to_card, to_host)
+                                           to_host)
 from yaik_tpu_torch.encoder import api, pipeline, scoring
 from yaik_tpu_torch.encoder import bank as bankmod
 from yaik_tpu_torch.encoder.context import EncoderConfig, _ZstdBatch
@@ -100,26 +102,7 @@ def _grad_packed_len(w: int, h: int) -> int:
     return kernels.grad_score_len(h, w)
 
 
-@dataclasses.dataclass
-class _Precomputed:
-    """One image's scoring results for emission: the 7 gradient accept
-    grids, and the six 3D passes' results, dense (the banded encode) or
-    compacted (the batches)."""
-    grad_accepts: list
-    t3: list
-
-    def emit(self, img: np.ndarray, cfg: EncoderConfig,
-             defer: _ZstdBatch | None = None):
-        return api.emit_image(img, self.grad_accepts, self.t3, cfg,
-                              defer=defer)
-
-
-def _upload(imgs: list, dev: torch.device) -> torch.Tensor:
-    """[B, 3, H, W] i32 planes on `dev`, sent as u8 (a quarter of the
-    bytes) and widened there."""
-    with profiler.stage("encode:upload"):
-        stacked = np.stack([im[:, :, :3].transpose(2, 0, 1) for im in imgs])
-        return to_card(stacked, dev).to(torch.int32)
+_upload = pipeline.upload      # the name chip_smoke.py reads
 
 
 def _score_gradients(planes: torch.Tensor, cfg: EncoderConfig):
@@ -128,17 +111,6 @@ def _score_gradients(planes: torch.Tensor, cfg: EncoderConfig):
     claims = torch.zeros(planes.shape, dtype=torch.bool,
                          device=planes.device)
     return scoring.gradient_packed(planes, claims, cfg.reject_factor), claims
-
-
-def _split_gradients(packed: np.ndarray, w: int, h: int) -> list:
-    """[B, G] u8 -> the 7 passes' accept grids [B, nty, ntx] bool."""
-    out, off = [], 0
-    for (sx, sy) in swizzle.GRADIENT_PASS_ORDER:
-        nty, ntx = h >> sy, w >> sx
-        out.append(packed[:, off:off + nty * ntx]
-                   .reshape(-1, nty, ntx).astype(bool))
-        off += nty * ntx
-    return out
 
 
 @dataclasses.dataclass
@@ -195,26 +167,28 @@ def _emit_from_unpacked(imgs: list, packed: np.ndarray, per_pass: list,
     calls release the GIL); else all streams go to one shared zstd batch.
     Every batch compresses on the process's zstd pool."""
     h, w = imgs[0].shape[:2]
-    grad = _split_gradients(packed, w, h)
-    pres = [_Precomputed(
-        [a[i] for a in grad],
-        [{"shift": res["shift"], "bits_scan": res["bits_scan"][i],
-          "count": res["count"][i], "rows": res["rows"][i]}
-         for res in per_pass]) for i in range(len(imgs))]
+    grad = scoring.split_accepts(packed, h, w)
+
+    def emit(i: int, zb: _ZstdBatch):
+        return api.emit_image(
+            imgs[i], [a[i] for a in grad],
+            [{"shift": res["shift"], "bits_scan": res["bits_scan"][i],
+              "count": res["count"][i], "rows": res["rows"][i]}
+             for res in per_pass], cfg, defer=zb)
     if emit_workers > 1 and len(imgs) > 1:
         here = profiler.current()
 
         def emit_one(i):
             with profiler.stage("emit:image", parent=here):
                 zb = _ZstdBatch()
-                mk = pres[i].emit(imgs[i], cfg, defer=zb)
+                mk = emit(i, zb)
                 zb.run()
                 return mk()
 
         with ThreadPoolExecutor(emit_workers) as pool:
             return list(pool.map(emit_one, range(len(imgs))))
     zb = _ZstdBatch()
-    makers = [pre.emit(img, cfg, defer=zb) for pre, img in zip(pres, imgs)]
+    makers = [emit(i, zb) for i in range(len(imgs))]
     with profiler.stage("emit:zstd-flush"):
         zb.run()
     with profiler.stage("emit:assemble"):
@@ -398,41 +372,33 @@ def encode_image_banded(img, bank: bankmod.Bank,
         raise ValueError(f"band_rows {band_rows} is not a positive "
                          "multiple of 16")
     band = _band_rows(w, h, max_pix) if band_rows is None else band_rows
-    dev = device_of(device)
-    tables = device_tables(bank, dev)
-    grad_parts, t3_parts = [], []
+    tables = device_tables(bank, device_of(device))
+    parts = []
     y0 = 0
     while y0 < h:
         bh = min(band, h - y0)
         if 0 < h - y0 - bh < 16:
             bh = h - y0          # a sub-16 remainder joins this band
         halo = 1 if y0 + bh < h else 0
-        planes = _upload([img[y0:y0 + bh + halo]], dev)
-        packed_g, claims = _score_gradients(planes, cfg)
-        flat = to_host(torch.cat([packed_g, pipeline._tile3d_all(
-            planes, claims, tables)], dim=1))[0]
-        gb = _grad_packed_len(w, bh)
-        grad_parts.append([a[0] for a in _split_gradients(
-            flat[None, :gb], w, bh)])
-        passes, off = [], gb
-        for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
-            P = (1 << sx) * (1 << sy)
-            n = (bh >> sy) * (w >> sx) * (P + 9)
-            passes.append(pipeline._unpack_pass(
-                flat[off:off + n].reshape(-1, P + 9), P))
-            off += n
-        t3_parts.append(passes)
+        parts += pipeline.score_dense([(img[y0:y0 + bh + halo], tables)],
+                                      cfg.reject_factor)
         y0 += bh
-    grad_accepts = [np.concatenate([b[k] for b in grad_parts])
-                    for k in range(len(swizzle.GRADIENT_PASS_ORDER))]
+    return api.emit_image(img, *_join_bands(parts, w, h), cfg)
+
+
+def _join_bands(parts: list, w: int, h: int) -> tuple:
+    """One image's (7 accept grids, six dense 3D dicts) from its bands',
+    top to bottom (`pipeline.score_dense`'s results), cut to the image's
+    tile rows (the mesh pads its bottom band)."""
+    accepts = [np.concatenate([p[0][k] for p in parts])[:h >> sy]
+               for k, (_, sy) in enumerate(swizzle.GRADIENT_PASS_ORDER)]
     t3 = []
-    for k, shift in enumerate(swizzle.TILE3D_PASS_ORDER):
-        idx, mask, accept, typ, bbox = (np.concatenate([b[k][j]
-                                                        for b in t3_parts])
-                                        for j in range(5))
-        t3.append({"shift": shift, "idx": idx, "mask": mask,
-                   "accept": accept, "type": typ, "bbox": bbox})
-    return _Precomputed(grad_accepts, t3).emit(img, cfg)
+    for k, (sx, sy) in enumerate(swizzle.TILE3D_PASS_ORDER):
+        T = (h >> sy) * (w >> sx)
+        t3.append({"shift": (sx, sy)} | {
+            key: np.concatenate([p[1][k][key] for p in parts])[:T]
+            for key in ("idx", "mask", "accept", "type", "bbox")})
+    return accepts, t3
 
 
 def encode_image_banded_mesh(img, bank: bankmod.Bank,
@@ -463,26 +429,7 @@ def encode_image_banded_mesh(img, bank: bankmod.Bank,
     padded = np.concatenate([src, np.repeat(src[-1:], n * bh + 1 - h,
                                             axis=0)])
 
-    def score(band: np.ndarray, dev: torch.device) -> torch.Tensor:
-        planes = _upload([band], dev)
-        packed_g, claims = _score_gradients(planes, cfg)
-        return torch.cat([packed_g, pipeline._tile3d_all(
-            planes, claims, device_tables(bank, dev))], dim=1)
-
-    parts = pbatch.over_slices(score, [
-        (padded[i * bh:(i + 1) * bh + 1], d) for i, d in enumerate(devs)])
-    flat = np.concatenate([to_host(p) for p in parts])         # [n, L]
-    gb = _grad_packed_len(w, bh)
-    grad_accepts = [a.reshape(-1, a.shape[2])[:h >> sy] for a, (_, sy) in zip(
-        _split_gradients(flat[:, :gb], w, bh), swizzle.GRADIENT_PASS_ORDER)]
-    t3, off = [], gb
-    for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
-        P = (1 << sx) * (1 << sy)
-        n_rows = (bh >> sy) * (w >> sx)
-        rows = flat[:, off:off + n_rows * (P + 9)].reshape(-1, P + 9)
-        idx, mask, accept, typ, bbox = pipeline._unpack_pass(
-            rows[:(h >> sy) * (w >> sx)], P)
-        t3.append({"shift": (sx, sy), "idx": idx, "mask": mask,
-                   "accept": accept, "type": typ, "bbox": bbox})
-        off += n_rows * (P + 9)
-    return _Precomputed(grad_accepts, t3).emit(img, cfg)
+    parts = pipeline.score_dense(
+        [(padded[i * bh:(i + 1) * bh + 1], device_tables(bank, d))
+         for i, d in enumerate(devs)], cfg.reject_factor)
+    return api.emit_image(img, *_join_bands(parts, w, h), cfg)

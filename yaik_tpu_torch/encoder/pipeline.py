@@ -1,26 +1,33 @@
 """Device scoring pipelines: the counterpart of
 `yaik_tpu.encoder.device_pipeline`.
 
-One image, dense (`run_gradient_scoring`, `tile3d_all`,
-`run_tile3d_scoring`): planes and claims stay on the device across all 13
-passes; each pass's dense results come back to the host once, after the
-last pass of each stage.
-
-A batch [B, 3, H, W] (`encoder.batch`), every pass one launch of each
-scoring kernel for the whole batch:
+Every pass runs over a batch [B, 3, H, W] of planes, one launch of each
+scoring kernel for the whole batch, with planes and claims on the device
+across all 13 passes:
+- `upload` sends [H, W, 3|4] u8 images as their RGB bytes and makes the
+  i32 planes on the device;
 - `_resident_packed` packs a pass's results into one u8 row per tile,
   [B, T, P+9] = idx | mask << 6 (P bytes), accept, type (2 bytes, little
   endian), bbox (mn | mx, 6 bytes); `_tile3d_all` concatenates all six
-  passes' rows per image (the dense download of the banded encode);
+  passes' rows per image;
+- `score_dense` is the dense scoring of image rows (one image, a band of
+  one, or one band per device): the upload, the gradient passes and
+  `_tile3d_all`, the joined blob brought back in one copy and unpacked
+  into the 7 accept grids and the six passes' dense dicts
+  (`api.score_image`, `batch.encode_image_banded`,
+  `batch.encode_image_banded_mesh`);
 - `_compact_pass` / `_tile3d_all_compact` download only what emission
   reads: per pass the accept bits over the scan-order tiles, the accepted
   count and the alive-tile count (u32 little endian each), and the first
   `dcap` accepted tiles' rows in scan order (rows past the count repeat
   the gather of the last scan tile); with scoring caps, only the first
-  `scap` alive tiles of each image are scored.
+  `scap` alive tiles of each image are scored (`batch.encode_batch`).
+
+`tile3d_all` runs the six passes of one image through the one-image
+`scoring.tile3d_pass`, its results left on the device.
 
 The host side is numpy: `pass_caps`, `caps_fit`, `unpack_compact` and
-`_unpack_pass`, copies of their JAX originals.
+`_unpack_pass`, copies of their JAX originals, and `unpack_dense`.
 """
 from __future__ import annotations
 
@@ -32,20 +39,8 @@ from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.encoder import scoring
 from yaik_tpu_torch.encoder.emit import _scan_perm
 from yaik_tpu_torch.encoder.tables import BankTables
+from yaik_tpu_torch.ops import kernels
 from yaik_tpu_torch.utils import profiler
-
-
-def run_gradient_scoring(planes: torch.Tensor, claims: torch.Tensor,
-                         reject_factor: int, plain: bool = False
-                         ) -> list[np.ndarray]:
-    """The 7 gradient passes (`kernels.grad_score`, or with `plain` its
-    plain version), their packed accepts downloaded once; returns their
-    accept grids as numpy bool. Claims evolve in place."""
-    h, w = planes.shape[-2:]
-    packed = scoring.gradient_packed(planes, claims, reject_factor, plain)
-    with profiler.stage("encode:download"):
-        packed = torch.from_numpy(to_host(packed))
-    return [a.numpy() for a in scoring.split_accepts(packed, h, w)]
 
 
 def tile3d_all(planes: torch.Tensor, claims: torch.Tensor,
@@ -65,24 +60,53 @@ def tile3d_all(planes: torch.Tensor, claims: torch.Tensor,
     return results
 
 
-def run_tile3d_scoring(planes: torch.Tensor, claims: torch.Tensor,
-                       tables: BankTables, plain: bool = False
-                       ) -> list[dict]:
-    """`tile3d_all`, its results downloaded as numpy arrays."""
-    results = tile3d_all(planes, claims, tables, plain)
-    with profiler.stage("encode:download"):
-        return [{k: v if k == "shift" else to_host(v)
-                 for k, v in res.items()} for res in results]
+def upload(imgs: list, dev: torch.device) -> torch.Tensor:
+    """[B, 3, H, W] i32 planes on `dev` of [H, W, 3|4] u8 images: their RGB
+    bytes sent as u8 (a quarter of the planes' bytes), made planar and
+    widened there."""
+    with profiler.stage("encode:upload"):
+        rgb = np.stack([im[:, :, :3] for im in imgs])
+        return to_card(rgb, dev).permute(0, 3, 1, 2).to(
+            torch.int32, memory_format=torch.contiguous_format)
+
+
+def score_dense(bands: list, reject_factor: int, plain: bool = False
+                ) -> list:
+    """Dense scoring of image rows: for each (rows [h, w, 3|4] u8, tables)
+    of `bands`, the rows uploaded once (`upload`) to the tables' device,
+    the 7 gradient passes (`scoring.gradient_packed`) and the six 3D
+    passes (`_tile3d_all`) queued there, every band queued before the
+    first is brought back, then each band's blob downloaded in one copy
+    and unpacked (`unpack_dense`). `plain` scores with the kernels' plain
+    versions. Returns per band (the 7 accept grids [h >> sy, w >> sx]
+    bool, the six passes' dense dicts)."""
+    blobs = []
+    for rows, tables in bands:
+        planes = upload([rows], tables.qpts.device)
+        claims = torch.zeros(planes.shape, dtype=torch.bool,
+                             device=planes.device)
+        with profiler.stage("encode:gradient-scoring"):
+            packed_g = scoring.gradient_packed(planes, claims, reject_factor,
+                                               plain)
+        with profiler.stage("encode:3d-scoring"):
+            packed_t3 = _tile3d_all(planes, claims, tables, plain)
+        blobs.append(torch.cat([packed_g, packed_t3], dim=1)[0])
+    out = []
+    for (rows, _), blob in zip(bands, blobs):
+        with profiler.stage("encode:download"):
+            out.append(unpack_dense(to_host(blob), *rows.shape[1::-1]))
+    return out
 
 
 # -- a batch on the device ----------------------------------------------------
 
 def _resident_packed(planes: torch.Tensor, claims: torch.Tensor,
                      tables: BankTables, sx: int, sy: int,
-                     cap_score: int | None = None):
+                     cap_score: int | None = None, plain: bool = False):
     """One 3D pass over a batch [B, 3, H, W], packed: ([B, T, P+9] u8,
     alive_cnt [B] i32). Claims evolve in place."""
-    r = scoring.tile3d_pass_b(planes, claims, tables, sx, sy, cap_score)
+    r = scoring.tile3d_pass_b(planes, claims, tables, sx, sy, cap_score,
+                              plain)
     u8 = torch.uint8
     packed = torch.cat([
         (r.idx | (r.mask.to(torch.int32) << 6)).to(u8),
@@ -94,12 +118,13 @@ def _resident_packed(planes: torch.Tensor, claims: torch.Tensor,
 
 
 def _tile3d_all(planes: torch.Tensor, claims: torch.Tensor,
-                tables: BankTables) -> torch.Tensor:
+                tables: BankTables, plain: bool = False) -> torch.Tensor:
     """All six 3D passes over a batch, dense: [B, sum of T * (P+9)] u8,
     pass-major per image. Claims evolve in place."""
     B = planes.shape[0]
     return torch.cat([
-        _resident_packed(planes, claims, tables, sx, sy)[0].reshape(B, -1)
+        _resident_packed(planes, claims, tables, sx, sy,
+                         plain=plain)[0].reshape(B, -1)
         for (sx, sy) in swizzle.TILE3D_PASS_ORDER], dim=1)
 
 
@@ -161,15 +186,34 @@ def scan_perms(w: int, h: int, device) -> list[torch.Tensor]:
 # -- the host side of the compaction (numpy) -----------------------------------
 
 def _unpack_pass(packed: np.ndarray, P: int):
-    """[T, P+9] u8 rows -> (idx, mask, accept, type, bbox) of one pass."""
-    im = packed[:, :P]
-    idx = (im & 63).astype(np.int32)
-    mask = (im >> 6).astype(bool)
-    accept = packed[:, P].astype(bool)
+    """[T, P+9] u8 rows -> (idx [T, P] u8, mask [T, P] bool, accept [T]
+    bool, type [T] i32, bbox [T, 6] u8) of one pass; idx and mask are
+    views of arrays made in one pass over the whole rows, accept and bbox
+    views of `packed`."""
+    idx = (packed & 63)[:, :P]
+    mask = (packed >= 64)[:, :P]
+    accept = packed[:, P].view(bool)
     typ = (packed[:, P + 1].astype(np.int32)
            | (packed[:, P + 2].astype(np.int32) << 8))
-    bbox = packed[:, P + 3:P + 9].astype(np.int32)
+    bbox = packed[:, P + 3:P + 9]
     return idx, mask, accept, typ, bbox
+
+
+def unpack_dense(flat: np.ndarray, w: int, h: int) -> tuple:
+    """`score_dense`'s blob of one w x h image (its packed gradient
+    accepts, then `_tile3d_all`'s rows) -> (the 7 accept grids, per 3D
+    pass a dict of shift, idx, mask, accept, type and bbox)."""
+    G = kernels.grad_score_len(h, w)
+    t3, off = [], G
+    for (sx, sy) in swizzle.TILE3D_PASS_ORDER:
+        P = (1 << sx) * (1 << sy)
+        n = (h >> sy) * (w >> sx) * (P + 9)
+        idx, mask, accept, typ, bbox = _unpack_pass(
+            flat[off:off + n].reshape(-1, P + 9), P)
+        t3.append({"shift": (sx, sy), "idx": idx, "mask": mask,
+                   "accept": accept, "type": typ, "bbox": bbox})
+        off += n
+    return scoring.split_accepts(flat[:G], h, w), t3
 
 
 def pass_caps(w: int, h: int, frac: int = 8, dfrac: int = 16,

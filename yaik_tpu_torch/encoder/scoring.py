@@ -53,10 +53,13 @@ def gradient_packed(planes: torch.Tensor, claims: torch.Tensor,
     return fn(planes.contiguous(), claims, reject_factor)
 
 
-def split_accepts(packed: torch.Tensor, h: int, w: int) -> list:
-    """[(B,) G] u8 packed accepts -> the 7 passes' grids [(B,) nty, ntx]
-    bool, views of `packed`."""
-    flags, lead = packed.view(torch.bool), packed.shape[:-1]
+def split_accepts(packed, h: int, w: int) -> list:
+    """[(B,) G] u8 packed accepts, a tensor or a numpy array -> the 7
+    passes' grids [(B,) nty, ntx] bool of the same kind, views of
+    `packed`."""
+    flags = packed.view(torch.bool if isinstance(packed, torch.Tensor)
+                        else bool)
+    lead = packed.shape[:-1]
     out, off = [], 0
     for (sx, sy) in swizzle.GRADIENT_PASS_ORDER:
         nty, ntx = h >> sy, w >> sx
@@ -219,17 +222,19 @@ def _scatter(rows: torch.Tensor, src: torch.Tensor, valid: torch.Tensor,
 
 def tile3d_pass_b(planes: torch.Tensor, claims: torch.Tensor,
                   tables: BankTables, sx: int, sy: int,
-                  cap_score: int | None = None) -> Tile3DPass:
+                  cap_score: int | None = None, plain: bool = False
+                  ) -> Tile3DPass:
     """One 3D pass over planes / claims [B, 3, H, W] (see
     tile3d_operands_b); claims take the accepted tiles. With a cap, a
     tile left unscored has accept, type and idx 0, and alive_cnt above
-    the cap tells the caller so."""
+    the cap tells the caller so. `plain` scores with the kernels' plain
+    versions on any device."""
     B, _, h, w = planes.shape
     tw, th = 1 << sx, 1 << sy
     nty, ntx = h // th, w // tw
     T, P = nty * ntx, th * tw
     bo = tile3d_operands_b(planes, claims, sx, sy, cap_score)
-    accept, tile_type, idx = _score(bo.ops, tables, plain=False)
+    accept, tile_type, idx = _score(bo.ops, tables, plain)
     if bo.src is not None:
         accept, tile_type, idx = (_scatter(x, bo.src, bo.valid, B * T)
                                   for x in (accept, tile_type, idx))
