@@ -31,6 +31,7 @@ import torch
 from yaik_tpu_torch.format import swizzle
 from yaik_tpu_torch.encoder.tables import BankTables
 from yaik_tpu_torch.ops import kernels
+from yaik_tpu_torch.utils import profiler
 
 
 def _claim(claims: torch.Tensor, accept: torch.Tensor, th: int, tw: int):
@@ -200,8 +201,17 @@ def tile3d_operands(planes: torch.Tensor, claims: torch.Tensor, sx: int,
 
 def _score(ops: Tile3DOperands, tables: BankTables, plain: bool):
     """(accept, tile_type, idx) of the operands' rows: score48_mode, then
-    values48, each one launch (their plain versions with `plain`)."""
+    values48, each one launch (their plain versions with `plain`). A pass
+    with no row (no whole tile: the 16x8 and 8x16 passes of an 8x8 image)
+    scores nothing, calls neither kernel and counts one
+    `score_passes_empty`."""
     alive = ~ops.mask
+    if not alive.shape[0]:
+        profiler.count("score_passes_empty")
+        dev = alive.device
+        return (torch.zeros(0, dtype=torch.bool, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev),
+                torch.zeros(alive.shape, dtype=torch.int32, device=dev))
     score = kernels.score48_mode_plain if plain else kernels.score48_mode
     values = kernels.values48_plain if plain else kernels.values48
     mode48 = score(ops.c, alive, tables.qpts)

@@ -342,7 +342,8 @@ def decode_corpus(streams: list, lut, batch_size: int = 8,
     batch may mix alpha with no alpha, or alpha specs: it then decodes RGB
     on the card and attaches the host's alpha, as the JAX package does.
     Over `devices`, each batch is split over them, and every slice of
-    batch k+1 is queued before batch k is downloaded."""
+    batch k+1 is queued before batch k is downloaded. Each batch counts
+    one `decode_batches` and its streams in `decode_batch_streams`."""
     if batch_size < 1:
         raise ValueError(f"batch_size {batch_size} < 1")
     bank, tables = _tables(lut, device, devices)
@@ -378,6 +379,8 @@ def decode_corpus(streams: list, lut, batch_size: int = 8,
                 planned = list(pool.map(plan_and_pack, chunk) if pool
                                else map(plan_and_pack, chunk))
                 job = _dispatch(chunk, planned, tables, flags)
+                profiler.count("decode_batches")
+                profiler.count("decode_batch_streams", len(chunk))
                 if pending is not None:
                     _drain(pending, results)
                 pending = job
